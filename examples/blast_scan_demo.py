@@ -16,7 +16,8 @@ figure-8 on the ground. Three controller configurations:
 
 Writes docs/blast_scan.png and prints a JSON summary.
 
-Run (CPU is fine, ~2 min):  python examples/blast_scan_demo.py
+Runs in float32 on a GPU and in float64 elsewhere (CPU, ~2 min):
+    python examples/blast_scan_demo.py
 """
 import json
 import os
@@ -26,20 +27,22 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if not any(d.platform == "tpu" for d in jax.devices()):
+ON_GPU = jax.devices()[0].platform == "gpu"
+if not ON_GPU:
     jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from mpc_blaster_tpu.poc.solver import true_poc_traj  # noqa: E402
+from mpc_blaster_tpu.utils.cache import enable_compile_cache  # noqa: E402
 from mpc_blaster_tpu.sim.plots import plot_blast_scan  # noqa: E402
 from mpc_blaster_tpu.sim.tasks import run_blast_scan  # noqa: E402
 
 
 def main():
-    dtype = jnp.float32 if jax.devices()[0].platform == "tpu" \
-        else jnp.float64
+    enable_compile_cache()
+    dtype = jnp.float32 if ON_GPU else jnp.float64
     # 1260 ticks = 42 s = one full lemniscate period after the descent
     kw = dict(n_steps=1260, dtype=dtype, z_end=1.5, t_ramp_s=6.0)
     configs = {

@@ -1,13 +1,12 @@
-"""Deployment profiles demo: the hardware-validated latency/quality
-trade-offs by name, plus the PX4-wire flight shell.
+"""Deployment profiles demo: the latency/quality trade-offs by name, plus
+the PX4-wire flight shell.
 
-Profiles (config.deployed_solver; v5e chip, N=20 horizon, fetch-based
-timing; all three now run the SINGLE-KERNEL fused RTI tick —
-qp_backend="pallas_fused", linearization inside the IPM kernel):
+Profiles (config.deployed_solver; all three run the XLA Riccati IPM with
+the component-form linearizer):
 
-  safe     cold 6-iter fused ticks       0.52 ms  1906 Hz  fig8 0.0388 m
-  fast     cold 4-iter fused             ~0.40 ms ~2500 Hz fig8 0.0387 m
-  fastest  3-iter shifted primal warm    0.34 ms  2904 Hz  fig8 0.0324 m
+  safe     cold 6-iteration ticks
+  fast     cold 4-iteration ticks
+  fastest  3-iteration shifted primal-recentered warm chain + watchdog
 
 All three pass the altitude-step transient stress that diverges RAW
 (unshifted) warm chains by hundreds of meters — the shift is the
@@ -17,7 +16,7 @@ since r4 "fastest" additionally carries the ONLINE divergence watchdog
 tick whose diagnostics jump is recomputed cold and the chain held cold
 with escalating holds, so the profile is safe by construction.
 
-Run (CPU, ~2 min):  python examples/deployed_profiles_demo.py
+Run (~2 min on the CPU):  python examples/deployed_profiles_demo.py
 """
 import dataclasses
 import json
@@ -26,19 +25,17 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # demo runs anywhere
-
 import jax.numpy as jnp
 import numpy as np
 
 from mpc_blaster_tpu import config as cfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import make_closed_loop
+from mpc_blaster_tpu.utils.cache import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     dtype = jnp.float32
     preset = cfg.simulation_preset()
     ocp = dataclasses.replace(preset.ocp, N=20, Tf=20 / 30.0)
@@ -48,10 +45,6 @@ def main():
     out = {}
     for profile in ("safe", "fast", "fastest"):
         solver = cfg.deployed_solver(profile)
-        # off-TPU the Pallas kernel runs in interpret mode (slow); use
-        # the XLA backend for the demo, same algorithm
-        solver = dataclasses.replace(solver, qp_backend="riccati",
-                                     lin_backend="jacfwd")
         ocp_p = dataclasses.replace(ocp, solver=solver)
         run = make_closed_loop(ocp_p, 150, dtype=dtype,
                                warm_start=solver.warm_shift)
@@ -72,7 +65,7 @@ def main():
     endpoint = UdpEndpoint(wire="mavlink2").start()
     adapter = UdpAttitudeAdapter(("127.0.0.1", endpoint.port),
                                  recv_port=0, wire="mavlink2")
-    node = FlightNode(dtype=jnp.float64, adapter=adapter)
+    node = FlightNode(dtype=dtype, adapter=adapter)
     node.run(n_steps=5)
     import time
     time.sleep(0.3)

@@ -1,19 +1,16 @@
 """Offset-free deployment demo (r4): constant wind the controller cannot
 see, learned online by the force+torque observer, compensated through the
-"blaster_dist" prediction model — at FULL kernel fusion when a TPU is
-present (qp_backend="pallas_fused": RK4 linearization of the
-disturbance-augmented model runs inside the IPM kernel; the disturbance
-estimates ride stage-parameter rows 25:31 as *data*, so one compiled
-kernel serves every estimate).
+"blaster_dist" prediction model (the disturbance estimates ride
+stage-parameter rows 25:31 as *data*, so one compiled tick serves every
+estimate).
 
 The reference flight node has no state feedback at all (it integrates its
 own model open-loop, `mavros_blaster_sim.py:109-118`); this is the
-capability gap that matters most in real wind. Measured on a v5e chip
-(r4, flight preset N=20): 0.556 ms/tick = 1797 Hz with the wind estimate
-recovered exactly; bench now runs the sim preset at N=30 (see module
-comment below for the r5 horizon-stability correction).
+capability gap that matters most in real wind. The demo runs the sim
+preset at N=30 (see the comment in main() for the horizon-stability
+correction).
 
-Run (CPU, ~2 min):  python examples/offset_free_demo.py
+Run (~2 min on the CPU):  python examples/offset_free_demo.py
 """
 import dataclasses
 import json
@@ -23,18 +20,17 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # demo runs anywhere
-
 import jax.numpy as jnp
 import numpy as np
 
 from mpc_blaster_tpu import config as cfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.scenarios import offset_free_loop
+from mpc_blaster_tpu.utils.cache import enable_compile_cache
 
 
 def main():
+    enable_compile_cache()
     # SIM preset at N=30 — inside its stable envelope. (r5 correction:
     # the r4 claim that the sim preset's R_swivel=1e-5 makes wind
     # compensation hunt was wrong — the hunt is a SHORT-HORIZON artifact

@@ -1,6 +1,7 @@
-"""mpc_blaster_tpu — a TPU-native nonlinear MPC framework for the BLASTER quadrotor.
+"""mpc_blaster_tpu — an accelerator-resident nonlinear MPC framework for the
+BLASTER quadrotor.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
+A from-scratch JAX/XLA re-design of the capability surface of the
 reference `sml93/mpc_blaster` (CasADi + acados + HPIPM + BLASFEO + ROS):
 
   - ``core``      rotations, quaternions, nozzle homogeneous-transform chain
@@ -14,7 +15,6 @@ reference `sml93/mpc_blaster` (CasADi + acados + HPIPM + BLASFEO + ROS):
   - ``sqp``       Gauss-Newton SQP-RTI controller
   - ``sim``       closed-loop simulation harnesses (lax.scan, fully on-device)
   - ``parallel``  vmap/shard_map scenario batching over device meshes
-  - ``ops``       Pallas TPU kernels for the batched hot path
   - ``io``        host-side adapters where the reference's ROS/MAVROS shell sat
   - ``runtime``   native C++ real-time executor + CPU QP fallback (ctypes)
 """

@@ -19,7 +19,7 @@ from mpc_blaster_tpu.sqp.rti import init_rti_state, make_rti_step
 def main():
     preset = cfg.smoke_preset()
     ocp = preset.ocp
-    print(f"blaster-tpu-mpc smoke build: N={ocp.N} Tf={ocp.Tf} "
+    print(f"BLASTER MPC smoke build: N={ocp.N} Tf={ocp.Tf} "
           f"mass={ocp.model.mass} on {jax.devices()[0]}")
     spec = build_spec(ocp)
     step = make_rti_step(ocp)

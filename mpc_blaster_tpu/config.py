@@ -103,8 +103,8 @@ class SolverConfig:
 
     The reference fixes SQP_RTI + PARTIAL_CONDENSING_HPIPM with
     `qp_solver_iter_max=500` and NLP tolerances 1e-6
-    (`blastermodel.py:272-287`). On TPU the iteration budget must be static:
-    ``ipm_iters`` interior-point iterations are always run (lax.scan), and
+    (`blastermodel.py:272-287`). Under jit the iteration budget must be
+    static: ``ipm_iters`` interior-point iterations are always run (lax.scan), and
     the best iterate by KKT merit is returned, so extra iterations past
     convergence are harmless (see `qp/ipm.py`).
 
@@ -125,11 +125,7 @@ class SolverConfig:
     # cond_N=N analog — the reference's actual setting); "condensed" =
     # partial condensing with block size cond_M (qp/condense.py, the
     # HPIPM cond_N = N/cond_M capability: shorter sequential chain,
-    # denser matmuls).
-    # "pallas" = the fused whole-IPM TPU mega-kernel (ops/pallas_ipm.py);
-    # "pallas_fused" = the SINGLE-KERNEL RTI tick: RK4 linearization runs
-    # inside the IPM kernel too (B=1 BLASTER latency path; needs
-    # dyn_statics — make_rti_step/closed_loop wire it automatically).
+    # denser matmuls). Both are plain JAX left to XLA.
     qp_backend: str = "riccati"
     cond_M: int = 5
     # Inner Newton-system solver of the Riccati IPM: "scan" (sequential
@@ -140,15 +136,8 @@ class SolverConfig:
     # Linearization backend: "jacfwd" = vmapped jax.jacfwd of the RK4 map
     # (acados forward-sensitivity ERK analog); "fused" = component-form
     # RK4+jvp with zero small matmuls (`dynamics/fastlin.py`) — same
-    # numbers, fewer XLA ops, built for the B=1 latency loop where the
-    # jacfwd path is dispatch-bound.
+    # numbers, fewer XLA ops.
     lin_backend: str = "jacfwd"
-    # Pallas kernel HBM-streaming overrides (None = auto by horizon; see
-    # ops/pallas_ipm.py). Deployment tuning knobs: streaming trades VMEM
-    # footprint for per-stage DMA latency, so the fastest setting depends
-    # on N and on what else shares the chip.
-    pallas_stream_p: bool | None = None
-    pallas_stream_big: bool | None = None
     # Warm-start conditioning for rti_step_warm chains (see
     # qp/ipm.py::warm_start_recenter): "full" passes slacks+duals as-is
     # (HPIPM warm_start=1), "primal" re-centers duals at mu0/s,
@@ -185,6 +174,15 @@ class SolverConfig:
     tol_eq: float = 1e-6
     tol_ineq: float = 1e-6
     tol_comp: float = 1e-6
+
+    def __post_init__(self):
+        if self.qp_backend not in QP_BACKENDS:
+            raise ValueError(
+                f"unknown qp_backend {self.qp_backend!r} (expected one of "
+                f"{QP_BACKENDS})")
+
+
+QP_BACKENDS = ("riccati", "condensed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,32 +367,24 @@ def smoke_preset() -> Preset:
 
 
 def deployed_solver(profile: str = "safe") -> SolverConfig:
-    """Hardware-validated deployment solver profiles (bench.py rows,
-    v5e, N=20; all pass the altitude-step transient stress and match or
-    beat the 12-iteration reference-quality figure-8 error). All three
-    run the SINGLE-KERNEL fused RTI tick (qp_backend="pallas_fused":
-    RK4 linearization inside the IPM kernel, zero inter-kernel dispatch;
-    measured fig8 parity 0.0388 m == the two-kernel path):
+    """Deployment solver profiles. All three run the XLA Riccati IPM
+    (`qp/ipm.py`) with the component-form linearizer
+    (`dynamics/fastlin.py`); they differ in iteration budget and warm
+    starting.
 
-    - "safe":    cold 6-iteration fused ticks — 1906 Hz. The most
-                 conservative profile; mirrors the reference's HPIPM
-                 `qp_solver_warm_start=0` + generous iterations.
-    - "fast":    cold 4-iteration — ~2500 Hz at identical measured
-                 quality (two-kernel: fig8 0.0387 vs 0.0388 m).
-    - "fastest": 3-iteration shifted primal-recentered warm chain —
-                 2904 Hz AND the best figure-8 error measured
-                 (0.0324 m two-kernel). Requires a warm loop
-                 (closed_loop / make_tracking_loop with
-                 warm_start=True) so the slack/dual state threads
-                 between ticks. Since r4 it carries the ONLINE
-                 divergence watchdog (warm_watchdog=True,
-                 `sqp/rti.py::rti_step_warm_guarded`): a tick whose
-                 KKT-eq residual jumps past 30x the chain's running
-                 level is recomputed cold in-place, so the profile is
-                 safe BY CONSTRUCTION, not only by the offline
-                 altitude-step stress gate.
+    - "safe":    cold 6-iteration ticks. The most conservative profile;
+                 mirrors the reference's HPIPM `qp_solver_warm_start=0`
+                 with generous iterations.
+    - "fast":    cold 4-iteration ticks.
+    - "fastest": 3-iteration shifted primal-recentered warm chain.
+                 Requires a warm loop (closed_loop / make_tracking_loop
+                 with warm_start=True) so the slack/dual state threads
+                 between ticks. It carries the online divergence watchdog
+                 (warm_watchdog=True, `sqp/rti.py::rti_step_warm_guarded`):
+                 a tick whose KKT-eq residual jumps past 30x the chain's
+                 running level is recomputed cold in place.
     """
-    base = dict(qp_backend="pallas_fused", lin_backend="fused")
+    base = dict(qp_backend="riccati", lin_backend="fused")
     if profile == "safe":
         return SolverConfig(ipm_iters=6, **base)
     if profile == "fast":

@@ -1,6 +1,6 @@
 """BLASTER 17-state rigid-body + gimbal + POC dynamics as a pure function.
 
-TPU-native replacement for the CasADi symbolic model of
+JAX replacement for the CasADi symbolic model of
 `src/scripts/blastermodel.py:47-212`: instead of building an SX expression
 graph and generating C, the ODE is a traced jnp function; Jacobians come from
 `jax.jacfwd` instead of CasADi autodiff; discretization is in

@@ -4,9 +4,8 @@ zero small matmuls.
 Why this exists: the default linearizer (`sqp/rti.py::_linearize_nodes`,
 `jax.vmap(jacfwd(F))`) lowers to dozens of tiny `dot_general`s (3x3
 rotations, 3x3 POC Jacobian products, per RK4 stage, per tangent batch).
-On TPU each non-fusable op costs ~2-5 us of sequential dispatch, so at
-B=1 the linearization is latency-bound at ~0.4 ms/tick — comparable to
-the whole fused Pallas IPM solve (CLAUDE.md perf notes).
+Each non-fusable op is a separate launch, so at B=1 the linearization
+risks being bound by launches rather than arithmetic.
 
 Here the BLASTER ODE (`blaster.py::blaster_ode`, reference
 `blastermodel.py:124-199`) is restated with every state component as a
@@ -35,8 +34,8 @@ _C = NX + NU  # tangent columns per shooting node
 
 
 def _ode_rows(X, U, P, params: BlasterParams):
-    """blaster_ode with components as rows: X (17, L), U (6, L), P (25, L)
-    -> Xdot (17, L). Pure elementwise ops (reference `blastermodel.py:
+    """blaster_ode with components as rows: X, U, P are tuples of 17, 6
+    and 25 (L,) rows -> tuple of 17 Xdot rows. Pure elementwise ops (reference `blastermodel.py:
     124-199`; see `blaster.py::blaster_ode` for the vector form)."""
     phi, th, psi = X[3], X[4], X[5]
     vx, vy, vz = X[6], X[7], X[8]
@@ -109,37 +108,27 @@ def _ode_rows(X, U, P, params: BlasterParams):
             wd1, wd2, wd3,
             ad1, ad2,
             poc[0], poc[1], poc[2])
-    # tuple-in -> tuple-out (r4): the host linearizer passes X/U/P as
-    # TUPLES of rows so the whole RK4+jvp stays one fused elementwise
-    # chain — a stacked return here would materialize a (17, L) tensor
-    # per RK4 stage (measured HBM-bound at B=1024, ~8x its issue
-    # floor; the tuple layout lifts the full batched tick 1.61x). The
-    # kernel prologue still passes arrays (VMEM-resident; stacks are
-    # free there).
-    return rows if isinstance(X, tuple) else jnp.stack(rows, axis=0)
+    # tuple-in -> tuple-out (r4): X/U/P arrive as TUPLES of rows so the
+    # whole RK4+jvp stays one fused elementwise chain — a stacked return
+    # here would materialize a (17, L) tensor per RK4 stage.
+    return rows
 
 
 def _ode_rows_dist(X, U, P, params: BlasterParams):
     """Disturbance-augmented BLASTER rows (offset-free MPC prediction
     model, `sim/scenarios.py::_disturbed_ode`): the observer's force and
     torque acceleration estimates ride in SIX EXTRA stage-parameter rows
-    (P[25:28] on v_dot, P[28:31] on omega_dot) so they stay *data* — the
-    fused kernel's static prologue serves every disturbance estimate
-    without recompiling. Slice-concat instead of `.at[].add`: Mosaic has
-    no scatter-add lowering (r4 hardware finding — interpret mode
-    accepts it, the real TPU compile fails)."""
+    (P[25:28] on v_dot, P[28:31] on omega_dot) so they stay *data* — one
+    compiled linearizer serves every disturbance estimate without
+    recompiling."""
     Xd = _ode_rows(X, U, P, params)
-    if isinstance(Xd, tuple):
-        return (Xd[:6] + tuple(Xd[6 + i] + P[25 + i] for i in range(6))
-                + Xd[12:])
-    return jnp.concatenate(
-        [Xd[0:6], Xd[6:9] + P[25:28], Xd[9:12] + P[28:31], Xd[12:]],
-        axis=0)
+    return (Xd[:6] + tuple(Xd[6 + i] + P[25 + i] for i in range(6))
+            + Xd[12:])
 
 
 def _quad13_rows(X, U, P, params: BlasterParams):
-    """`models/quad13.py::quad13_ode` with components as rows: X (13, L),
-    U (4, L) -> Xdot (13, L); P unused. Same Hamilton-product q_dot and
+    """`models/quad13.py::quad13_ode` with components as rows: tuples of
+    13 X rows and 4 U rows -> tuple of 13 Xdot rows; P unused. Same Hamilton-product q_dot and
     R(q)e3 thrust column as the vector form (core/rotations.py:94-118),
     written elementwise."""
     del P
@@ -181,14 +170,13 @@ def _quad13_rows(X, U, P, params: BlasterParams):
             qdw, qdx, qdy, qdz,
             vdx, vdy, vdz,
             wd1, wd2, wd3)
-    return rows if isinstance(X, tuple) else jnp.stack(rows, axis=0)
+    return rows
 
 
-# Model-family registry for rows-form ODEs (r4): the fused linearization
-# prologue (`ops/pallas_ipm.py`, `fuse_lin`) and `fast_linearize` below
-# dispatch on the family name carried in `fused_dyn_statics`. All three
-# families share the same 8 physical constants (mass, g, arms, yaw
-# coefficient, diagonal inertia) packed into a BlasterParams.
+# Model-family registry for rows-form ODEs (r4): `fast_linearize` below
+# dispatches on the family name. All three families share the same 8
+# physical constants (mass, g, arms, yaw coefficient, diagonal inertia)
+# packed into a BlasterParams.
 FAMILIES = {
     "blaster": _ode_rows,
     "blaster_dist": _ode_rows_dist,
@@ -198,28 +186,19 @@ FAMILIES = {
 
 def _rk4_rows(X, U, P, params, dt, num_steps, ode=_ode_rows):
     """Classic RK4 (acados ERK(4, num_steps); rows layout; num_steps is
-    static and small -> plain Python unroll). X may be a stacked (nx, L)
-    array (kernel prologue) or a TUPLE of (L,) rows (host linearizer;
-    keeps the whole chain fusion-friendly — see _ode_rows)."""
+    static and small -> plain Python unroll). X is a TUPLE of (L,) rows
+    (keeps the whole chain fusion-friendly — see _ode_rows)."""
     h = dt / num_steps
-    if isinstance(X, tuple):
-        for _ in range(num_steps):
-            k1 = ode(X, U, P, params)
-            X2 = tuple(x + (0.5 * h) * k for x, k in zip(X, k1))
-            k2 = ode(X2, U, P, params)
-            X3 = tuple(x + (0.5 * h) * k for x, k in zip(X, k2))
-            k3 = ode(X3, U, P, params)
-            X4 = tuple(x + h * k for x, k in zip(X, k3))
-            k4 = ode(X4, U, P, params)
-            X = tuple(x + (h / 6.0) * (a + 2.0 * b + 2.0 * c + d)
-                      for x, a, b, c, d in zip(X, k1, k2, k3, k4))
-        return X
     for _ in range(num_steps):
         k1 = ode(X, U, P, params)
-        k2 = ode(X + (0.5 * h) * k1, U, P, params)
-        k3 = ode(X + (0.5 * h) * k2, U, P, params)
-        k4 = ode(X + h * k3, U, P, params)
-        X = X + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+        X2 = tuple(x + (0.5 * h) * k for x, k in zip(X, k1))
+        k2 = ode(X2, U, P, params)
+        X3 = tuple(x + (0.5 * h) * k for x, k in zip(X, k2))
+        k3 = ode(X3, U, P, params)
+        X4 = tuple(x + h * k for x, k in zip(X, k3))
+        k4 = ode(X4, U, P, params)
+        X = tuple(x + (h / 6.0) * (a + 2.0 * b + 2.0 * c + d)
+                  for x, a, b, c, d in zip(X, k1, k2, k3, k4))
     return X
 
 
@@ -242,17 +221,18 @@ def fast_linearize(xbar: jnp.ndarray, ubar: jnp.ndarray,
 
     # rows as TUPLES (r4): every operand is its own (n*nc,) vector, so
     # XLA sees one long fused elementwise chain with no stacked (nx, L)
-    # materialization between RK4 stages. The stacked form was HBM-bound
-    # at large batch (1.62 ms/pass at B=1024, ~8x its issue floor);
-    # measured through the full batched RTI tick this layout lifts
-    # 151.4k -> 243.5k solves/s at the deployed 6-iteration budget
-    # (101.5k -> 139.0k at 12 iterations) on v5e
+    # materialization between RK4 stages (the stacked form was bound by
+    # memory traffic at large batch).
     x_re = tuple(jnp.repeat(xs[:, j], nc) for j in range(nx))
     u_re = tuple(jnp.repeat(ubar[:, j], nc) for j in range(nu))
     p_re = tuple(jnp.repeat(stage_params[:, j], nc) for j in range(np_))
     col = jnp.tile(jnp.arange(nc), n)
-    x_du = tuple((col == j).astype(dtype) for j in range(nx))
-    u_du = tuple((col == nx + j).astype(dtype) for j in range(nu))
+    # tangent seeds tied to the data (+ 0*x): under shard_map a constant
+    # seed is unvarying over the mesh axis and jvp rejects mixing it with
+    # the sharded primal
+    zero = 0.0 * x_re[0]
+    x_du = tuple((col == j).astype(dtype) + zero for j in range(nx))
+    u_du = tuple((col == nx + j).astype(dtype) + zero for j in range(nu))
 
     def f(xr, ur):
         return _rk4_rows(xr, ur, p_re, params, dt, num_steps, ode=ode)

@@ -17,6 +17,8 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 
+from mpc_blaster_tpu.qp.data import full_precision
+
 Ode = Callable[..., jnp.ndarray]  # f(x, u, *args) -> xdot
 
 
@@ -29,13 +31,15 @@ def rk4_step(f: Ode, x: jnp.ndarray, u: jnp.ndarray, dt, *args) -> jnp.ndarray:
     return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
+@full_precision
 def erk_integrate(f: Ode, x: jnp.ndarray, u: jnp.ndarray, T, *args,
                   num_steps: int = 1) -> jnp.ndarray:
     """Integrate over [0, T] with `num_steps` RK4 substeps (static count).
 
     Matches `AcadosSimSolver` with ERK(4, num_steps). `T` may be a traced
     scalar (the POC solver differentiates through it); only `num_steps` must
-    be static.
+    be static. The ODE's matmuls (rotations, POC Jacobians) and their
+    jacfwd tangents run at `qp.data.MATMUL_PRECISION`.
     """
     dt = T / num_steps
     if num_steps == 1:

@@ -108,26 +108,23 @@ class FlightNode:
             # guarded chain the sim loops deploy
             from mpc_blaster_tpu.qp.ipm import IpmWarmStart
             from mpc_blaster_tpu.sqp.rti import (WatchdogState,
-                                                 fused_dyn_statics,
                                                  make_linearizer,
                                                  rti_step_warm,
                                                  rti_step_warm_guarded)
             F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
             lin = make_linearizer(ocp, self.params)
-            dyn = (fused_dyn_statics(ocp, 1)
-                   if ocp.solver.qp_backend == "pallas_fused" else None)
             self._warm = IpmWarmStart.zeros(ocp.N, cfg.NX, cfg.NU, dtype)
             self._wd = WatchdogState.init(dtype)
             if ocp.solver.warm_watchdog:
                 self._step_warm = jax.jit(
                     lambda spec, st, w, wd, x: rti_step_warm_guarded(
                         spec, st, w, wd, x, self.params, F, ocp.solver,
-                        linearizer=lin, dyn_statics=dyn))
+                        linearizer=lin))
             else:
                 self._step_warm = jax.jit(
                     lambda spec, st, w, x: rti_step_warm(
                         spec, st, w, x, self.params, F, ocp.solver,
-                        linearizer=lin, dyn_statics=dyn))
+                        linearizer=lin))
         else:
             self._step = make_rti_step(ocp, dtype=dtype)
 

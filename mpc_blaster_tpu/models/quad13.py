@@ -138,29 +138,15 @@ def init_quad13_rti_state(c: Quad13Config, x0: jnp.ndarray,
                     ubar=jnp.tile(u_h[None], (c.N, 1)))
 
 
-def quad13_dyn_statics(c: Quad13Config, num_steps: int = 1) -> tuple:
-    """Static dynamics tuple for `qp_backend="pallas_fused"` on the
-    quaternion family (same packing as `sqp/rti.py::fused_dyn_statics`;
-    the "quad13" rows-form ODE comes from `dynamics/fastlin.py::FAMILIES`)."""
-    return (("quad13", float(c.mass), float(c.gravity),
-             float(c.arm_length_x), float(c.arm_length_y),
-             float(c.yaw_coefficient), float(c.inertia_diag[0]),
-             float(c.inertia_diag[1]), float(c.inertia_diag[2])),
-            float(c.dt), int(num_steps))
-
-
 def make_quad13_rti_step(c: Quad13Config, dtype=jnp.float32, jit: bool = True,
                          solver=None):
     """Jitted RTI tick on the quaternion model (same SQP/QP machinery).
 
-    `solver` (a config.SolverConfig) selects the QP backend: the Pallas
-    IPM mega-kernel is dimension-generic, so
-    SolverConfig(qp_backend="pallas", ipm_iters=6) runs the 13-state
-    quaternion family through the same kernel as the BLASTER model, and
-    "pallas_fused" (r4) runs the WHOLE tick — in-kernel RK4
-    linearization included — via the "quad13" rows-form ODE
-    (`dynamics/fastlin.py::FAMILIES`). `lin_backend="fused"` likewise
-    maps to the rows-form linearizer on the host path."""
+    `solver` (a config.SolverConfig) selects the QP backend and budget;
+    the Riccati IPM is dimension-generic, so the 13-state quaternion
+    family runs through the same solver as the BLASTER model.
+    `lin_backend="fused"` maps to the "quad13" rows-form linearizer
+    (`dynamics/fastlin.py::FAMILIES`)."""
     import jax
 
     from mpc_blaster_tpu.dynamics.integrators import discrete_dynamics
@@ -180,12 +166,10 @@ def make_quad13_rti_step(c: Quad13Config, dtype=jnp.float32, jit: bool = True,
                                   1, family="quad13")
     elif solver.lin_backend != "jacfwd":
         raise ValueError("quad13 supports lin_backend 'jacfwd'/'fused'")
-    dyn = (quad13_dyn_statics(c, 1)
-           if solver.qp_backend == "pallas_fused" else None)
 
     def step(spec: OCPSpec, state: RTIState, x0: jnp.ndarray):
         return rti_step(spec, state, x0, params, F, solver,
-                        linearizer=lin, dyn_statics=dyn)
+                        linearizer=lin)
 
     return jax.jit(step) if jit else step
 

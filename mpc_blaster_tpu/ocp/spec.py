@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from mpc_blaster_tpu import config as cfg
+from mpc_blaster_tpu.qp.data import full_precision
 
 
 class OCPSpec(NamedTuple):
@@ -96,6 +97,7 @@ def build_spec(ocp: cfg.OCPConfig, yref=None, stage_params=None,
     )
 
 
+@full_precision
 def stage_cost(spec: OCPSpec, x: jnp.ndarray, u: jnp.ndarray,
                k: int) -> jnp.ndarray:
     """dt * (0.5|x-yref|^2_Q + 0.5|u-uref|^2_R) for diagnostics."""
@@ -104,6 +106,7 @@ def stage_cost(spec: OCPSpec, x: jnp.ndarray, u: jnp.ndarray,
     return spec.dt * (0.5 * ex @ spec.Q @ ex + 0.5 * eu @ spec.R @ eu)
 
 
+@full_precision
 def total_cost(spec: OCPSpec, xs: jnp.ndarray, us: jnp.ndarray) -> jnp.ndarray:
     """Full-trajectory objective (the reference prints `get_cost()` per tick,
     `simulation_blaster.py:86`)."""

@@ -5,8 +5,7 @@ arbitrary 10x scaling of the stage weights (`simulation_blaster.py:24-27`
 qt = 10 * q — not a cost-to-go), and short prediction horizons with such a
 terminal cost can be CLOSED-LOOP UNSTABLE even when every per-tick QP is
 solved to high accuracy. Measured on the offset-free wind-compensation
-loop with sim-preset weights at dt = 1/30 s (scripts/probe_r5_terminal.py,
-scripts/probe_r5_gimbal_*.py):
+loop with sim-preset weights at dt = 1/30 s:
 
   horizon    preset Q_t                 LQR Q_t (this module)
   N = 10     1.63 m limit cycle         0.115 m settle, eq ~ 2e-9
@@ -15,8 +14,8 @@ scripts/probe_r5_gimbal_*.py):
   N >= 24    settles with either Q_t (0.008 m); native N = 60: 0.0003 m
 
 (*) the N = 20-truncated sim config sits on a multi-factor stability
-boundary (bounds + weights + horizon interact; no single knob flips it —
-scripts/probe_r5_morph.py); deploy the sim preset at N >= 24.
+boundary (bounds + weights + horizon interact; no single knob flips
+it); deploy the sim preset at N >= 24.
 
 The classical result behind this: with terminal cost equal to the
 unconstrained infinite-horizon LQR cost-to-go at the target equilibrium,

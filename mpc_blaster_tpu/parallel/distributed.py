@@ -3,10 +3,10 @@
 The reference has no distributed story at all (SURVEY.md §2.3); its only
 IPC is ROS pub/sub. Here multi-host runs are the same shard_map code as
 single host: `initialize()` wires the jax.distributed runtime, and
-`global_mesh()` builds a mesh over every chip in the slice/pod. Per-scenario
-QP solves stay local to their chip; only sweep reductions (psum/pmax in
-parallel/mesh.py) cross ICI within a slice and DCN across hosts — the
-layout BASELINE.md's pod-scale config asks for.
+`global_mesh()` builds a mesh over every device of every process.
+Per-scenario QP solves stay local to their device; only sweep reductions
+(pmean/pmax in parallel/mesh.py) cross devices and hosts — the layout
+BASELINE.md's multi-device config asks for.
 
 On a single process this module degrades gracefully (no-op initialize),
 so the same entry point runs everywhere.
@@ -26,8 +26,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed if a multi-process env is configured.
 
-    Returns True when running distributed. Arguments may be omitted when
-    the cluster environment (TPU pod metadata / env vars) provides them.
+    Returns True when running distributed. Arguments may be omitted only
+    when the cluster environment (e.g. a SLURM job) provides them.
     """
     if num_processes is not None and num_processes <= 1:
         return False

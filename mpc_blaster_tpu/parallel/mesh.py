@@ -1,23 +1,22 @@
 """Scenario-parallel scaling: vmap batching + shard_map over device meshes.
 
 The reference is single-process/single-thread (SURVEY.md §2.3) — its only
-scaling story is BLASFEO assembly inside one QP. The TPU-native framework
-scales along the *scenario* axis (disturbance draws, waypoint targets, gain
+scaling story is BLASFEO assembly inside one QP. This framework scales
+along the *scenario* axis (disturbance draws, waypoint targets, gain
 sweeps; BASELINE.md configs 4-5):
 
   - `vmap` turns the single-trajectory RTI tick into a batched tick whose
-    tiny per-scenario matrices fill the MXU/VPU;
-  - `shard_map` over a 1-D "dp" device mesh splits the batch across chips;
-    per-scenario QP solves are fully local (zero communication), and only
-    sweep *reductions* (mean cost, max KKT residual) cross ICI via psum —
-    the collectives pattern that rides ICI, not DCN.
+    tiny per-scenario matrices batch into wide device ops;
+  - `shard_map` over a 1-D "dp" device mesh splits the batch across
+    devices; per-scenario QP solves are fully local (zero communication),
+    and only sweep *reductions* (mean cost, max KKT residual) cross the
+    device interconnect via pmean/pmax.
 
 Multi-host: `jax.distributed.initialize()` + the same code — jax.devices()
 then spans hosts and shard_map shards globally.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional
 
 import jax
@@ -38,126 +37,16 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> Mesh:
     return Mesh(np.asarray(devs), (axis,))
 
 
-def batched_rti_step(ocp: cfg.OCPConfig, dtype=jnp.float32, jit: bool = True,
-                     backend: str = "xla"):
+def batched_rti_step(ocp: cfg.OCPConfig, dtype=jnp.float32, jit: bool = True):
     """vmap the RTI tick over a scenario batch.
 
     Returns step(spec, states, x0s) -> (u0s, states, diags); `spec` is
     shared (broadcast), states/x0s carry a leading batch axis. Use
     jax.vmap over spec too if per-scenario costs/targets differ.
-
-    backend="pallas" routes the batched QP solves through the fused
-    Pallas IPM mega-kernel (ops/pallas_ipm.py) — the fast path on real
-    TPU hardware for all-finite-bound OCPs; "pallas_fused" additionally
-    moves the QP assembly (cost gradients, delta bounds, dx0) AND the
-    iterate update INTO the kernel (r5) — only the linearizer remains
-    host-side; "xla" is the general path.
     """
-    if backend == "pallas":
-        return _batched_rti_step_pallas(ocp, dtype=dtype, jit=jit)
-    if backend == "pallas_fused":
-        return _batched_rti_step_pallas_fused(ocp, dtype=dtype, jit=jit)
     step = make_rti_step(ocp, dtype=dtype, jit=False)
     batched = jax.vmap(step, in_axes=(None, 0, 0))
     return jax.jit(batched) if jit else batched
-
-
-def _batched_rti_step_pallas(ocp: cfg.OCPConfig, dtype=jnp.float32,
-                             jit: bool = True):
-    from mpc_blaster_tpu.dynamics.blaster import BlasterParams, blaster_ode
-    from mpc_blaster_tpu.dynamics.integrators import discrete_dynamics
-    from mpc_blaster_tpu.ops.pallas_ipm import (pallas_available,
-                                                pallas_box_qp_solve)
-    from mpc_blaster_tpu.sqp.rti import (RTIDiagnostics, build_qp,
-                                         make_linearizer)
-
-    params = BlasterParams.from_config(ocp.model, dtype)
-    F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
-    solver = ocp.solver
-    lin = make_linearizer(ocp, params)
-
-    def step(spec, states, x0s):
-        qps = jax.vmap(
-            lambda st, x: build_qp(spec, st, x, F, params, linearizer=lin,
-                                   solver=solver)
-        )(states, x0s)
-        sol = pallas_box_qp_solve(qps, iters=solver.ipm_iters,
-                                  mu0=solver.ipm_mu0,
-                                  alpha_frac=solver.ipm_alpha_frac,
-                                  reg=max(solver.ipm_reg, 1e-6),
-                                  interpret=not pallas_available())
-        new_states = RTIState(xbar=states.xbar + sol.dx,
-                              ubar=states.ubar + sol.du)
-        from mpc_blaster_tpu.sqp.rti import _bound_violation
-        diag = RTIDiagnostics(
-            qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
-            step_norm_x=jnp.max(jnp.abs(sol.dx), axis=(1, 2)),
-            step_norm_u=jnp.max(jnp.abs(sol.du), axis=(1, 2)),
-            bound_viol=jax.vmap(_bound_violation, in_axes=(None, 0))(
-                spec, new_states),
-        )
-        return new_states.ubar[:, 0], new_states, diag
-
-    return jax.jit(step) if jit else step
-
-
-def _batched_rti_step_pallas_fused(ocp: cfg.OCPConfig, dtype=jnp.float32,
-                                   jit: bool = True):
-    """Batched RTI tick with IN-KERNEL QP assembly + state update (r5).
-
-    Per tick the host runs ONLY the component-form linearizer
-    (`dynamics/fastlin.py`, batched); cost gradients, delta bounds, dx0,
-    the IPM solve and the iterate update xbar+dx / ubar+du all happen
-    inside one Pallas kernel per lane tile
-    (`ops/pallas_ipm.py::pallas_batched_fused_tick`). The r4 batched
-    path spent ~45% of its wall clock on those host-side elementwise
-    passes over (B, N, nx) tensors (ROADMAP r5 item 1).
-
-    Numerics: same QP, same IPM — parity with `_batched_rti_step_pallas`
-    is tested in tests/test_batched_fused.py.
-    """
-    from mpc_blaster_tpu.dynamics.blaster import BlasterParams
-    from mpc_blaster_tpu.dynamics.fastlin import fast_linearize
-    from mpc_blaster_tpu.ops.pallas_ipm import (pallas_available,
-                                                pallas_batched_fused_tick)
-    from mpc_blaster_tpu.sqp.rti import RTIDiagnostics, qp_hessian_R
-
-    params = BlasterParams.from_config(ocp.model, dtype)
-    solver = ocp.solver
-
-    def step(spec, states, x0s):
-        B = x0s.shape[0]
-        xbar, ubar = states.xbar, states.ubar
-        x_pred, A, Bm = jax.vmap(
-            lambda xb, ub: fast_linearize(xb, ub, spec.stage_params,
-                                          params, ocp.dt, 1))(xbar, ubar)
-        AB = jnp.concatenate([A, Bm], axis=-1)
-        c = x_pred - xbar[:, 1:]
-        dtw = spec.dt
-
-        def bc(a):
-            return jnp.broadcast_to(a[None], (B,) + a.shape)
-
-        Rh = qp_hessian_R(spec, solver)
-        Rg = (dtw * spec.R) if solver.qp_r_floor is not None else None
-        new_xbar, new_ubar, dg, _sol = pallas_batched_fused_tick(
-            AB, c, xbar, ubar, x0s,
-            bc(dtw * spec.Q), bc(spec.Q_t), bc(dtw * Rh),
-            bc(spec.yref_x), bc(spec.yref_u), bc(spec.yref_e),
-            bc(spec.lbx), bc(spec.ubx), bc(spec.lbu), bc(spec.ubu),
-            iters=solver.ipm_iters, mu0=solver.ipm_mu0,
-            alpha_frac=solver.ipm_alpha_frac,
-            reg=max(solver.ipm_reg, 1e-6),
-            interpret=not pallas_available(),
-            R_grad=None if Rg is None else bc(Rg))
-        diag = RTIDiagnostics(
-            qp_kkt_stat=dg["kkt_stat"], qp_kkt_eq=dg["kkt_eq"],
-            qp_mu=dg["mu"], step_norm_x=dg["step_norm_x"],
-            step_norm_u=dg["step_norm_u"], bound_viol=dg["bound_viol"])
-        new_states = RTIState(xbar=new_xbar, ubar=new_ubar)
-        return new_ubar[:, 0], new_states, diag
-
-    return jax.jit(step) if jit else step
 
 
 def batched_rti_step_per_scenario_spec(ocp: cfg.OCPConfig, dtype=jnp.float32,
@@ -183,7 +72,7 @@ def sharded_rti_step(ocp: cfg.OCPConfig, mesh: Mesh, dtype=jnp.float32,
 
     def shard_fn(spec, states, x0s):
         u0s, new_states, diags = vstep(spec, states, x0s)
-        # Global reductions ride ICI: mean step norm + worst KKT residual.
+        # Global reductions: mean step norm + worst KKT residual.
         mean_step = jax.lax.pmean(jnp.mean(diags.step_norm_u), axis)
         worst_kkt = jax.lax.pmax(jnp.max(diags.qp_kkt_stat), axis)
         return u0s, new_states, mean_step, worst_kkt

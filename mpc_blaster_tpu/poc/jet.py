@@ -6,7 +6,7 @@ The reference integrates the 6-state ODE
 
 with a generated-C acados ERK(4) integrator, 10 substeps per call
 (`Jacobian_POC_Solver.py:89-102`). With scalar drag c the ODE is linear with
-constant coefficients, so on TPU we use the exact solution instead — no
+constant coefficients, so we use the exact solution instead — no
 integrator in the hot path at all:
 
     v(t) = v_inf + (v0 - v_inf) e^{-c t},        v_inf = g / c

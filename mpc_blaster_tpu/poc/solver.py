@@ -1,6 +1,6 @@
 """Point-of-contact solve + Jacobians, fully differentiable.
 
-TPU-native replacement for `src/scripts/Jacobian_POC_Solver.py`: the
+JAX replacement for `src/scripts/Jacobian_POC_Solver.py`: the
 reference Newton-iterates time-of-impact with finite-difference derivatives
 over an acados C integrator, then builds dPOC/d(euler, motor, position) from
 9 perturbed re-solves at eps=1e-6 (`Jacobian_POC_Solver.py:234-300`). Here:

@@ -1,4 +1,4 @@
-"""Partial condensing — the HPIPM `qp_solver_cond_N` capability, TPU-first.
+"""Partial condensing — the HPIPM `qp_solver_cond_N` capability.
 
 The reference selects `PARTIAL_CONDENSING_HPIPM` with `cond_N = N`
 (`blastermodel.py:274,284`), i.e. the machinery is wired but no condensing
@@ -8,12 +8,11 @@ shorter OCP QP with horizon Nc = N/M and control dimension M·nu, and the
 condensed QP is solved by the same Mehrotra IPM + Riccati (now with cost
 cross terms S, `riccati.py`).
 
-Why this is the TPU-idiomatic trade: the Riccati recursion is inherently
-sequential in the horizon, and on TPU the XLA QP path is *latency*-bound —
-a chain of small fused ops (CLAUDE.md "Performance facts"). Condensing
-divides the sequential chain length by M while turning the per-stage work
-into denser matmuls (M·nu-square H_uu, (M-1)·nx-row constraint maps) that
-the MXU actually likes. The block maps themselves are built *in parallel
+Why this trade: the Riccati recursion is inherently sequential in the
+horizon, so the XLA QP path is a chain of small fused ops, which risks
+being bound by latency rather than arithmetic. Condensing divides the
+sequential chain length by M while turning the per-stage work into denser
+matmuls (M·nu-square H_uu, (M-1)·nx-row constraint maps). The block maps themselves are built *in parallel
 across blocks* (vmap over Nc; the i-recursion inside a block is unrolled —
 M is small and static).
 
@@ -57,7 +56,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from mpc_blaster_tpu.qp.data import QPData, QPSolution
+from mpc_blaster_tpu.qp.data import QPData, QPSolution, full_precision
 from mpc_blaster_tpu.qp.riccati import riccati_factorize, riccati_solve_rhs
 
 _BIG = 1e20
@@ -282,6 +281,7 @@ class _CGS(NamedTuple):
     lam_ug: jnp.ndarray
 
 
+@full_precision
 def condensed_qp_solve(data: QPData, M: int, iters: int = 12,
                        mu0: float = 1e-1, alpha_frac: float = 0.995,
                        reg: float = 1e-9, s_min: float = 1e-3,
@@ -300,10 +300,9 @@ def condensed_qp_solve(data: QPData, M: int, iters: int = 12,
     active/violated — measured on the sim-preset transient); off for f64,
     where the plain path is accurate and cheaper.
     """
-    with jax.default_matmul_precision("high"):
-        cqp = condense(data, M)
-        return _csolve(cqp, data, iters, mu0, alpha_frac, reg, s_min,
-                       mu_min, refine, sqrt)
+    cqp = condense(data, M)
+    return _csolve(cqp, data, iters, mu0, alpha_frac, reg, s_min,
+                   mu_min, refine, sqrt)
 
 
 def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
@@ -432,7 +431,7 @@ def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
 
         # Stage Hessian updates. Box sigmas are diagonal; the general
         # (interior-state) sigmas land as dense G' diag(sig) G blocks —
-        # batched matmuls over Nc stages, exactly MXU-shaped work.
+        # batched matmuls over Nc stages.
         GxS = cqp.Gx * sig_g[:, :, None]          # (Nc, ng, nx)
         Qmod = cqp.Qbar.at[1:].add(sig_X[:, :, None] * eye_x[None])
         Qmod = Qmod.at[:-1].add(jnp.einsum("cgi,cgj->cij", GxS, cqp.Gx))
@@ -523,7 +522,7 @@ def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
             (measured). Recover multipliers by the adjoint recursion (the
             x-rows are then exact by construction), form the u-row and
             dynamics residuals, re-solve with the SAME factorization, and
-            correct. This is the TPU answer to HPIPM's higher-precision
+            correct. This is the f32 answer to HPIPM's higher-precision
             accumulation — two extra vector-only scans, no refactorization.
             """
             lamN = Qmod[-1] @ d_dX[-1] + q_rhs[-1]

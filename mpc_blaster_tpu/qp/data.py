@@ -1,9 +1,9 @@
 """Block-structured OCP-QP data as stacked pytrees.
 
-This is the TPU-native analog of the OCP-QP interface acados hands to HPIPM
+This is the JAX analog of the OCP-QP interface acados hands to HPIPM
 (`blastermodel.py:274` `PARTIAL_CONDENSING_HPIPM`): per-stage quadratic cost,
 affine dynamics, and box bounds on states and controls, all stacked along a
-leading horizon axis so `lax.scan`/Pallas kernels stream over stages and
+leading horizon axis so `lax.scan` streams over stages and
 `vmap` batches over scenarios.
 
 All quantities are in "delta" form around a linearization trajectory
@@ -14,9 +14,31 @@ State box bounds therefore apply at stages 1..N, control bounds at 0..N-1.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
+
+# Matmul precision of every matmul on the controller's path. Reduced-
+# precision matmul defaults (bf16 passes, TF32 on GPUs) wreck the
+# Riccati/IPM numerics (CLAUDE.md "Numerical facts"); the blocks are 17x17
+# at most, so full-precision f32 costs nothing that matters.
+MATMUL_PRECISION = "highest"
+
+
+def full_precision(fn):
+    """Trace `fn` under `jax.default_matmul_precision(MATMUL_PRECISION)`.
+
+    Applied where the matmuls are: the ODE integrator
+    (`dynamics/integrators.py::erk_integrate`: plant, jacfwd linearizer,
+    defects), the QP build (`sqp/rti.py`), the QP solvers' public entries,
+    `qp_objective` and the OCP cost (`ocp/spec.py`)."""
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+        with jax.default_matmul_precision(MATMUL_PRECISION):
+            return fn(*args, **kwargs)
+    return scoped
 
 
 class QPData(NamedTuple):
@@ -85,6 +107,7 @@ class QPSolution(NamedTuple):
     s_uu: Optional[jnp.ndarray] = None
 
 
+@full_precision
 def qp_objective(data: QPData, dx: jnp.ndarray, du: jnp.ndarray) -> jnp.ndarray:
     """0.5 z'Hz + g'z for diagnostics and tests."""
     def quad(M, v):

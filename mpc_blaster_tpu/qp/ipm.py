@@ -1,6 +1,6 @@
 """Box-constrained OCP-QP via Mehrotra predictor-corrector IPM + Riccati.
 
-The HPIPM-class solver (`blastermodel.py:274`) rebuilt TPU-first:
+The HPIPM-class solver (`blastermodel.py:274`) rebuilt for XLA:
 
   - static iteration budget (`ipm_iters`) inside jit — no data-dependent
     loop counts (XLA requirement); converged problems keep iterating on a
@@ -30,7 +30,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from mpc_blaster_tpu.qp.data import QPData, QPSolution
+from mpc_blaster_tpu.qp.data import QPData, QPSolution, full_precision
 from mpc_blaster_tpu.qp.riccati import riccati_factorize, riccati_solve_rhs
 
 _BIG = 1e20  # slack value standing in for an infinite bound
@@ -80,6 +80,7 @@ class IpmWarmStart(NamedTuple):
 _RICCATI_BACKENDS = ("scan", "pscan", "hybrid", "sqrt")
 
 
+@full_precision
 def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
                  alpha_frac: float = 0.995,
                  reg: float = 1e-9, s_min: float = 1e-3,
@@ -112,19 +113,16 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
                   the condensed backend defaults to it in f32
                   (`qp/condense.py`). One QR custom call per stage.
 
-    All matmuls inside the solve are forced to full f32 precision: TPU's
-    default bf16 MXU passes destroy the Riccati/IPM numerics (KKT 0.1->10,
-    closed loops drift meters; measured on v5e). The *linearization* stays
-    at default precision — its defects are exact forward evaluations, so
-    slightly inexact Jacobians only make the SQP an inexact Newton method
-    (same tradeoff as the reference's sim_method_jac_reuse).
+    All matmuls inside the solve run at `qp.data.MATMUL_PRECISION`
+    ("highest", `full_precision`): reduced-precision matmul defaults (bf16
+    passes, TF32 on GPUs) destroy the Riccati/IPM numerics (KKT 0.1->10,
+    closed loops drift meters; CLAUDE.md "Numerical facts").
     """
     if riccati not in _RICCATI_BACKENDS:
         raise ValueError(f"riccati={riccati!r}; expected one of "
                          f"{_RICCATI_BACKENDS}")
-    with jax.default_matmul_precision("high"):
-        return _box_qp_solve_impl(data, iters, mu0, alpha_frac, reg,
-                                  s_min, mu_min, warm_du, warm, riccati)
+    return _box_qp_solve_impl(data, iters, mu0, alpha_frac, reg,
+                              s_min, mu_min, warm_du, warm, riccati)
 
 
 def _box_qp_solve_impl(data, iters, mu0, alpha_frac, reg, s_min,
@@ -144,7 +142,7 @@ def _box_qp_solve_impl(data, iters, mu0, alpha_frac, reg, s_min,
     N, nx, nu = data.horizon, data.nx, data.nu
     dtype = data.A.dtype
 
-    # dtype-aware numerical floors: f32 (the TPU compute dtype) cannot
+    # dtype-aware numerical floors: f32 (the device compute dtype) cannot
     # resolve complementarity products below ~1e-7 against O(1e3) cost
     # weights; driving mu lower produces garbage dual steps and NaNs in the
     # Riccati Cholesky (SURVEY.md §7 "Conditioning in f32").

@@ -2,12 +2,12 @@
 
 The reference's only answer to horizon growth is HPIPM partial condensing
 (`blastermodel.py:284`, with cond_N = N i.e. none, SURVEY.md §5
-"long-context" row). The TPU-native answer: the backward value recursion of
+"long-context" row). The answer here: the backward value recursion of
 the LQR is an *associative* operation on conditional-value-function
 elements (Särkkä & García-Fernández, temporal parallelization of LQR/
 smoothers), so `jax.lax.associative_scan` evaluates it in O(log N) depth —
 and when the stage axis is sharded over a device mesh, XLA turns the scan
-tree into ICI collectives: the direct analog of sequence parallelism in
+tree into collectives: the direct analog of sequence parallelism in
 transformer training.
 
 Element e = (A, b, C, eta, J) represents the span value function
@@ -27,7 +27,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from mpc_blaster_tpu.qp.data import QPData, QPSolution
+from mpc_blaster_tpu.qp.data import QPData, QPSolution, full_precision
 from mpc_blaster_tpu.qp.riccati import RiccatiFactor
 from mpc_blaster_tpu.qp.smallalg import chol_inverse
 
@@ -87,17 +87,13 @@ def backward_pass_pscan(A, B, c, Q, q, R, r, reg: float = 0.0
     return P, p
 
 
+@full_precision
 def lqr_solve_pscan(data: QPData, reg: float = 0.0) -> QPSolution:
     """Equality-only OCP QP solved with O(log N) parallel depth.
 
     Same solution as `riccati.lqr_solve`; preferable when the horizon axis
     is long and/or sharded over a mesh ("hp" sequence parallelism).
     """
-    with jax.default_matmul_precision("high"):
-        return _lqr_solve_pscan_impl(data, reg)
-
-
-def _lqr_solve_pscan_impl(data: QPData, reg: float = 0.0) -> QPSolution:
     dx, du = eqp_solve_pscan(data.A, data.B, data.c, data.Q, data.q,
                              data.R, data.r, data.dx0, reg)
     return QPSolution(dx=dx, du=du)
@@ -113,7 +109,7 @@ def eqp_solve_pscan(A, B, c, Q, q, R, r, dx0, reg: float = 0.0):
     split below (`riccati_factorize_pscan` + `riccati_solve_rhs_pscan`):
     at batch=1 the sequential per-stage Riccati sweeps dominate solve
     latency, and the associative-scan tree cuts that critical path from
-    O(N) to O(log N) — the TPU answer to HPIPM's tuned sequential kernels.
+    O(N) to O(log N) — the parallel answer to HPIPM's tuned sequential kernels.
     """
     nx, nu = A.shape[-1], B.shape[-1]
     dtype = A.dtype
@@ -175,8 +171,8 @@ def riccati_factorize_pscan(A, B, Q, R, reg: float = 0.0) -> RiccatiFactor:
     Produces the same `RiccatiFactor` (gains K, inverses of H_uu, value
     Hessians P) as `riccati.riccati_factorize`, so the two RHS solves of a
     Mehrotra IPM iteration can reuse one factorization regardless of
-    backend. The per-element combine solves an (nx, nx) system; on TPU
-    that is a batched LU custom call per tree level — heavier per step
+    backend. The per-element combine solves an (nx, nx) system; that
+    is a batched LU custom call per tree level — heavier per step
     than the sequential sweep's body, but only log2(N) levels deep.
     """
     N, nx, nu = A.shape[0], A.shape[-1], B.shape[-1]

@@ -3,8 +3,7 @@
 This is the factorization core of the HPIPM replacement: HPIPM solves each
 interior-point Newton system with a Riccati-based block factorization over
 the horizon (SURVEY.md §2.2); here that recursion is a `lax.scan` of small
-dense ops, jit-fused end to end, `vmap`-able over scenario batches, with a
-Pallas lane-batched variant in `ops/` for the large-batch hot path.
+dense ops, jit-fused end to end, `vmap`-able over scenario batches.
 
 Split into a *factor* pass (matrices only: feedback gains K, Cholesky
 factors of H_uu, value Hessians P) and a *solve* pass (vectors only:
@@ -23,7 +22,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-from mpc_blaster_tpu.qp.data import QPData, QPSolution
+from mpc_blaster_tpu.qp.data import QPData, QPSolution, full_precision
 from mpc_blaster_tpu.qp.smallalg import spd_inverse
 
 
@@ -36,9 +35,9 @@ class RiccatiFactor(NamedTuple):
 def riccati_factorize(A, B, Q, R, reg: float = 0.0, S=None) -> RiccatiFactor:
     """Matrix-only backward pass: P_k, K_k, inv(H_uu)_k.
 
-    H_uu is inverted via the unrolled small-Cholesky (smallalg.py): TPU
-    lowers jnp.linalg.cholesky/triangular_solve of 6x6 blocks to slow
-    custom calls, while the unrolled form fuses into the scan body.
+    H_uu is inverted via the unrolled small-Cholesky (smallalg.py): XLA
+    lowers jnp.linalg.cholesky/triangular_solve of 6x6 blocks to custom
+    calls, while the unrolled form fuses into the scan body.
 
     S (optional, (N, nu, nx)): cost cross terms 'u S x' — produced by
     partial condensing (`qp/condense.py`); H_ux becomes S + B'PA and
@@ -107,12 +106,13 @@ def riccati_solve(A, B, c, Q, q, R, r, dx0, reg: float = 0.0
     return dx, du, fac
 
 
+@full_precision
 def lqr_solve(data: QPData, reg: float = 0.0) -> QPSolution:
     """Solve the unconstrained (equality-only) OCP QP (full-precision
-    matmuls: TPU bf16 MXU defaults are fatal to Riccati numerics)."""
-    with jax.default_matmul_precision("high"):
-        dx, du, _ = riccati_solve(data.A, data.B, data.c, data.Q, data.q,
-                                  data.R, data.r, data.dx0, reg)
+    matmuls: reduced-precision defaults such as TF32 are fatal to Riccati
+    numerics)."""
+    dx, du, _ = riccati_solve(data.A, data.B, data.c, data.Q, data.q,
+                              data.R, data.r, data.dx0, reg)
     return QPSolution(dx=dx, du=du)
 
 

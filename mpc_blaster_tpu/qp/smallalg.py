@@ -1,13 +1,12 @@
 """Unrolled small-matrix algebra for the Riccati hot path.
 
-XLA lowers `jnp.linalg.cholesky` / triangular solves to custom calls that
-serialize badly on TPU for tiny (nu=6) blocks, especially under vmap over
-scenario batches. These routines unroll the factorization at trace time
-into plain elementwise ops (n^3/3 multiplies for n=6 is 72 flops), which
-XLA fuses and vectorizes over any leading batch dims — the same
-"batch-across-lanes, unroll the tiny dims" layout the Pallas IPM kernel
-uses (ops/pallas_ipm.py), and the moral equivalent of BLASFEO's fixed-size
-panel kernels inside HPIPM (SURVEY.md §2.2).
+XLA lowers `jnp.linalg.cholesky` / triangular solves to custom calls,
+which cannot fuse with their neighbours, for tiny (nu=6) blocks and under
+vmap over scenario batches alike. These routines unroll the factorization
+at trace time into plain elementwise ops (n^3/3 multiplies for n=6 is 72
+flops), which XLA fuses and vectorizes over any leading batch dims — the
+moral equivalent of BLASFEO's fixed-size panel kernels inside HPIPM
+(SURVEY.md §2.2).
 """
 from __future__ import annotations
 
@@ -80,7 +79,7 @@ def chol_inverse(M: jnp.ndarray) -> jnp.ndarray:
     stage collapses to K = 0 (feedback frozen, P recursion stays finite)
     instead of exploding the whole factorization to inf/NaN — the same
     role as HPIPM's on-failure regularization, chosen to be vectorizable
-    per batch lane."""
+    per batch element."""
     diag = jnp.diagonal(M, axis1=-2, axis2=-1)
     diag_ok = jnp.all(diag > 0.0, axis=-1)
     d = jnp.sqrt(jnp.maximum(diag, 1e-30))
@@ -124,7 +123,7 @@ def spd_inverse(M: jnp.ndarray, base: int = 8) -> jnp.ndarray:
 
         inv([[A, B], [B', C]]) via Ai = inv(A), S = C - B' Ai B
 
-    which emits a handful of dense matmuls per level (MXU work, log2(n/base)
+    which emits a handful of dense matmuls per level (log2(n/base)
     levels) and keeps the scalar unrolling at the leaves. Schur complements
     of SPD matrices are SPD, so the recursion is well-posed.
 

@@ -4,7 +4,7 @@ The reference's acados JSON schema carries the full soft-constraint
 apparatus (``idxsbx``/``zl``/``zu``/``Zl``/``Zu`` blocks in
 ``acados_ocp_blasterModel.json``) but the BLASTER OCP never populates it
 (SURVEY.md §7 "soft constraints ... exists in the reference's JSON schema
-but is unused"). This module supplies it TPU-first: per-component bound
+but is unused"). This module supplies it: per-component bound
 softening with an L1+L2 violation penalty
 
     lb - t_l <= v <= ub + t_u,   t >= 0,
@@ -21,7 +21,7 @@ modified barrier weight
 
 (hard bound = limit Z -> inf) plus an extra affine RHS term. The Riccati
 factorization/solve is completely unchanged — soft bounds cost a handful of
-extra VPU elementwise passes per IPM iteration and nothing else, so the
+extra elementwise passes per IPM iteration and nothing else, so the
 whole thing stays jit/vmap/shard_map-compatible with static shapes.
 
 Derivation sketch for one soft lower bound (upper is the mirror image):
@@ -47,7 +47,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from mpc_blaster_tpu.qp.data import QPData, QPSolution
+from mpc_blaster_tpu.qp.data import QPData, QPSolution, full_precision
 from mpc_blaster_tpu.qp.ipm import _kkt_residuals, _IpmState
 from mpc_blaster_tpu.qp.riccati import riccati_factorize, riccati_solve_rhs
 
@@ -151,37 +151,19 @@ def soft_qp_objective(data: QPData, soft: SoftBounds, dx, du) -> jnp.ndarray:
     return obj
 
 
-def violations_from_primal(data: QPData, soft: SoftBounds, dx, du
-                           ) -> tuple:
-    """(t_lx, t_ux, t_lu, t_uu) implied by a primal point: the violation
-    variable at an optimum equals the actual bound violation (t is only
-    nonzero where the penalized bound is exceeded). Used to report
-    violations for backends that eliminate t in-kernel (ops/pallas_ipm.py)
-    and therefore do not return it."""
-    out = []
-    for v, b, sgn, pen in ((dx[..., 1:, :], data.lbx[..., 1:, :], 1.0,
-                            soft.lx),
-                           (dx[..., 1:, :], data.ubx[..., 1:, :], -1.0,
-                            soft.ux),
-                           (du, data.lbu, 1.0, soft.lu),
-                           (du, data.ubu, -1.0, soft.uu)):
-        sm = pen.soft & jnp.isfinite(b)
-        out.append(jnp.where(sm, jnp.maximum(-sgn * (v - b), 0.0), 0.0))
-    return tuple(out)
-
-
+@full_precision
 def soft_box_qp_solve(data: QPData, soft: SoftBounds, iters: int = 12,
                       mu0: float = 1e-1, alpha_frac: float = 0.995,
                       reg: float = 1e-9, s_min: float = 1e-3,
                       mu_min: float = 1e-12) -> SoftQPSolution:
     """Solve the OCP QP with per-component soft box bounds.
 
-    Same scoped full-precision-matmul policy as `box_qp_solve` (TPU bf16
-    MXU defaults are fatal to the QP numerics; CLAUDE.md "Numerical facts").
+    Same scoped full-precision-matmul policy as `box_qp_solve` (reduced-
+    precision matmul defaults are fatal to the QP numerics; CLAUDE.md
+    "Numerical facts").
     """
-    with jax.default_matmul_precision("high"):
-        return _soft_impl(data, soft, iters, mu0, alpha_frac, reg, s_min,
-                          mu_min)
+    return _soft_impl(data, soft, iters, mu0, alpha_frac, reg, s_min,
+                      mu_min)
 
 
 def _soft_impl(data, soft, iters, mu0, alpha_frac, reg, s_min, mu_min):

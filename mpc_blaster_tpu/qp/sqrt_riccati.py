@@ -7,7 +7,7 @@ barrier curvature on DENSE rows (partial condensing's general constraints,
 and the final subtraction cancels catastrophically in f32 — measured: the
 first Newton direction of the sim-preset transient QP came out 170% wrong,
 and iterative refinement *diverges* because cond * eps_f32 > 1. HPIPM's
-answer is double precision (it is f64-only); the TPU-native answer is the
+answer is double precision (it is f64-only); the f32 answer here is the
 classical square-root array algorithm [Kailath, "Linear Estimation"; the
 LQR dual of square-root Kalman filtering]:
 
@@ -29,7 +29,7 @@ many RHS solves — the Mehrotra predictor/corrector split), with the
 stage cost supplied as row factors C_k instead of (Q, R, S) matrices.
 
 Cost: one QR of an (m + nx) x (nu + nx) stack per stage, sequential over
-the horizon. On TPU jnp.linalg.qr lowers to a custom call — this backend
+the horizon. jnp.linalg.qr lowers to a custom call — this backend
 trades kernel-fusion speed for numerical range, which is the right trade
 for the condensed (offline/long-horizon) path; the hot RTI path keeps the
 fused plain recursion, whose 6x6 axis-aligned blocks equilibrate fine.

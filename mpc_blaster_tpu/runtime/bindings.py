@@ -135,7 +135,7 @@ class NativeQPSolver:
         """Threaded batch solve: data fields carry a leading batch axis.
 
         n_threads=0 uses all hardware threads. The host-CPU analog of the
-        TPU scenario batch (useful for flight computers simulating
+        accelerator scenario batch (useful for flight computers simulating
         disturbance fans without an accelerator).
         """
         import os as _os

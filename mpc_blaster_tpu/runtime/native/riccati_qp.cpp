@@ -2,7 +2,7 @@
 //
 // Role in the framework: the host-side real-time path. The reference's
 // entire solver runtime is generated C (acados + HPIPM + BLASFEO, see
-// SURVEY.md §2.2); our TPU compute path replaces it with JAX/Pallas, and
+// SURVEY.md §2.2); our accelerator path replaces it with JAX/XLA, and
 // THIS file is the native equivalent for the flight computer / CPU-only
 // deployments: no Python dispatch, no XLA, deterministic latency. It
 // implements the same algorithm as mpc_blaster_tpu/qp/ipm.py (Mehrotra
@@ -690,7 +690,7 @@ int blaster_qp_solve(int N, int nx, int nu, const double* A, const double* B,
 
 // ---------------------------------------------------------------------------
 // Batched multi-threaded entry: scenario parallelism on the host CPU
-// (the deployment analog of the TPU vmap/shard_map batch axis).
+// (the deployment analog of the accelerator vmap/shard_map batch axis).
 
 #include <atomic>
 #include <thread>

@@ -81,17 +81,8 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0: jnp.ndarray,
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=ctrl_substeps)
     F_plant = discrete_dynamics(blaster_ode, ocp.dt, num_steps=plant_substeps)
     solver = ocp.solver
-    from mpc_blaster_tpu.sqp.rti import fused_dyn_statics, make_linearizer
+    from mpc_blaster_tpu.sqp.rti import make_linearizer
     lin = make_linearizer(ocp, params, num_steps=ctrl_substeps)
-    # qp_backend="pallas_fused": linearization runs INSIDE the IPM kernel
-    # (single-kernel tick). Jacobian reuse is moot there (the in-kernel
-    # linearization costs ~no dispatch), so the composition is rejected.
-    dyn = (fused_dyn_statics(ocp, ctrl_substeps)
-           if solver.qp_backend == "pallas_fused" else None)
-    if dyn is not None and jac_refresh > 1:
-        raise ValueError("jac_refresh>1 is not supported with "
-                         "qp_backend='pallas_fused' (the fused kernel "
-                         "re-linearizes in-kernel every tick)")
     x0 = jnp.asarray(x0, dtype)
     if plant_params is None:
         # `simulation_blaster.py:82-84`: plant uses the controller's stage-0
@@ -179,7 +170,7 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0: jnp.ndarray,
             spec_t = spec._replace(stage_params=stage_params_for(x, state))
             u0, state_new, warm_new, wd, diag = rti_step_warm_guarded(
                 spec_t, state, warm, wd, x, params, F, solver,
-                linearizer=lin, dyn_statics=dyn)
+                linearizer=lin)
             x_next = F_plant(x, u0, plant_params, params)
             cost = total_cost(spec_t, state_new.xbar, state_new.ubar)
             out = (x_next, u0, cost, diag.qp_kkt_stat, diag.qp_kkt_eq)
@@ -199,8 +190,7 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0: jnp.ndarray,
             state, warm, x = carry
             spec_t = spec._replace(stage_params=stage_params_for(x, state))
             u0, state_new, warm_new, diag = rti_step_warm(
-                spec_t, state, warm, x, params, F, solver, linearizer=lin,
-                dyn_statics=dyn)
+                spec_t, state, warm, x, params, F, solver, linearizer=lin)
             x_next = F_plant(x, u0, plant_params, params)
             cost = total_cost(spec_t, state_new.xbar, state_new.ubar)
             out = (x_next, u0, cost, diag.qp_kkt_stat, diag.qp_kkt_eq)
@@ -211,8 +201,8 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0: jnp.ndarray,
     elif jac_refresh > 1:
         # Jacobian-reuse deployed loop (the reference's sim_method_jac_reuse
         # precedent): exact defects every tick, A/B refreshed every
-        # jac_refresh-th tick — shaves the jacfwd linearization (~0.18 ms
-        # of the 0.86 ms rt6 tick at N=20 on v5e) off the reused ticks.
+        # jac_refresh-th tick — shaves the linearization off the reused
+        # ticks.
         from mpc_blaster_tpu.sqp.rti import JacCache, rti_step_jacreuse
         cache0 = JacCache.zeros(spec.horizon, x0.shape[0],
                                 rti0.ubar.shape[-1], dtype)
@@ -237,8 +227,7 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0: jnp.ndarray,
             state, x = carry
             spec_t = spec._replace(stage_params=stage_params_for(x, state))
             u0, state_new, diag = rti_step(spec_t, state, x, params, F,
-                                           solver, linearizer=lin,
-                                           dyn_statics=dyn)
+                                           solver, linearizer=lin)
             x_next = F_plant(x, u0, plant_params, params)
             cost = total_cost(spec_t, state_new.xbar, state_new.ubar)
             out = (x_next, u0, cost, diag.qp_kkt_stat, diag.qp_kkt_eq)

@@ -72,8 +72,8 @@ def dist_param_ode(x, u, p, params):
     """`_disturbed_ode` with the 6 disturbance channels carried as EXTRA
     STAGE-PARAMETER rows p[25:31] (vector-form twin of
     `dynamics/fastlin.py::_ode_rows_dist`): disturbance estimates stay
-    *data*, so the fused kernel's static "blaster_dist" prologue — and
-    any host-side linearizer — serves every estimate without recompiling."""
+    *data*, so one compiled linearizer serves every estimate without
+    recompiling."""
     xdot = blaster_ode(x, u, p, params)
     return xdot.at[cfg.IDX_V].add(p[25:28]).at[9:12].add(p[28:31])
 
@@ -94,12 +94,9 @@ def offset_free_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, wind,
     stage-parameter rows p[25:31] ("blaster_dist" model family).
 
     This is the single-trajectory twin of `disturbance_sweep(offset_free=
-    True)` built for the DEPLOYED latency path: with
-    `ocp.solver.qp_backend == "pallas_fused"` the whole tick — RK4
-    linearization of the disturbance-augmented model included — runs in
-    ONE Pallas kernel (r4; previously the fused backend silently covered
-    only the nominal ODE). Any other backend uses the rows-form host
-    linearizer of the same family, so all backends share one code path.
+    True)` built for the deployed latency path: the tick linearizes the
+    disturbance-augmented model with the rows-form "blaster_dist"
+    linearizer (`dynamics/fastlin.py`), whatever the QP backend.
 
     wind: (3,) constant plant wind acceleration (controller blind to it);
     derate: optional (4,) rotor effectiveness for fault recovery.
@@ -111,8 +108,8 @@ def offset_free_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, wind,
     estimate exact — and r5 measurement shows it is NOT the gimbal
     weight: raising R_swivel to 10, flooring the QP Hessian
     (SolverConfig.qp_r_floor), soft bounds and an LQR terminal each
-    improve but none settles it; no single sim->flight knob flips it
-    (scripts/probe_r5_gimbal_*.py, probe_r5_morph.py). Within the
+    improve but none settles it; no single sim->flight knob flips it.
+    Within the
     stable envelope the loop settles to centimeters on BOTH presets:
     N >= 24 at dt=1/30 (native N=60: 0.3 mm). At genuinely short
     horizons (N <= 12) the DARE terminal cost restores stability
@@ -121,22 +118,15 @@ def offset_free_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, wind,
     outside the +-1 m/s velocity box on 60% of ticks) is a measured
     co-driver at N=20 — `rti_step_soft` cuts QP eq residuals 10x there.
     """
-    from mpc_blaster_tpu.sqp.rti import fused_dyn_statics, rti_step
+    from mpc_blaster_tpu.dynamics.fastlin import fast_linearize
 
     params = BlasterParams.from_config(ocp.model, dtype)
     solver = ocp.solver
     F = discrete_dynamics(dist_param_ode, ocp.dt, num_steps=1)
-    use_fused = solver.qp_backend == "pallas_fused"
-    dyn = (fused_dyn_statics(ocp, 1, family="blaster_dist")
-           if use_fused else None)
-    if not use_fused:
-        from mpc_blaster_tpu.dynamics.fastlin import fast_linearize
 
-        def lin(xbar, ubar, stage_params):
-            return fast_linearize(xbar, ubar, stage_params, params,
-                                  ocp.dt, 1, family="blaster_dist")
-    else:
-        lin = None
+    def lin(xbar, ubar, stage_params):
+        return fast_linearize(xbar, ubar, stage_params, params,
+                              ocp.dt, 1, family="blaster_dist")
 
     x0 = jnp.asarray(x0, dtype)
     wind = jnp.asarray(wind, dtype)
@@ -167,7 +157,7 @@ def offset_free_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, wind,
         sp = sp0.at[:, 25:31].set(d_est[None, :])
         spec_t = spec._replace(stage_params=sp)
         u0, st, diag = rti_step(spec_t, st, x, params, F, solver,
-                                linearizer=lin, dyn_statics=dyn)
+                                linearizer=lin)
         x_next = plant(x, u0)
         pred = F(x, u0, sp[0], params)
         return (st, x_next, d_est, pred[6:12]), (x_next, u0, d_est,
@@ -206,15 +196,6 @@ def fault_sweep(spec: OCPSpec, ocp: cfg.OCPConfig,
     params = BlasterParams.from_config(ocp.model, dtype)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
     solver = ocp.solver
-    if solver.qp_backend == "pallas_fused":
-        # vmapped sweeps use the BATCHED kernel: the fused tick is the
-        # B=1 latency path by construction (its prologue repurposes the
-        # 128 lanes as (node, tangent-column) slots), so batched solves
-        # belong on qp_backend="pallas" regardless of the model. For the
-        # B=1 offset-free DEPLOYMENT tick at full fusion, use
-        # `offset_free_loop` ("blaster_dist" family, r4).
-        import dataclasses as _dc
-        solver = _dc.replace(solver, qp_backend="pallas")
     # solver.lin_backend is honored only on the NOMINAL prediction model:
     # the fused component-form linearizer (dynamics/fastlin.py) hard-codes
     # the blaster ODE, so the observer-augmented model (offset_free=True)
@@ -287,15 +268,6 @@ def disturbance_sweep(spec: OCPSpec, ocp: cfg.OCPConfig,
     params = BlasterParams.from_config(ocp.model, dtype)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
     solver = ocp.solver
-    if solver.qp_backend == "pallas_fused":
-        # vmapped sweeps use the BATCHED kernel: the fused tick is the
-        # B=1 latency path by construction (its prologue repurposes the
-        # 128 lanes as (node, tangent-column) slots), so batched solves
-        # belong on qp_backend="pallas" regardless of the model. For the
-        # B=1 offset-free DEPLOYMENT tick at full fusion, use
-        # `offset_free_loop` ("blaster_dist" family, r4).
-        import dataclasses as _dc
-        solver = _dc.replace(solver, qp_backend="pallas")
     # same nominal-model-only rule as fault_sweep (see comment there)
     from mpc_blaster_tpu.sqp.rti import make_linearizer
     lin_nom = None if offset_free else make_linearizer(ocp, params)

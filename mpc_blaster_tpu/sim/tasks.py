@@ -58,8 +58,8 @@ def make_tracking_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=jnp.float32,
     fed in a receding-horizon deployment.
 
     warm_start=True carries IPM slack/dual warm starts between ticks; pair
-    with reduced `ocp.solver.ipm_iters` (and `qp_backend="pallas"` on TPU)
-    for the latency-critical deployment loop.
+    with reduced `ocp.solver.ipm_iters` for the latency-critical
+    deployment loop (`config.deployed_solver("fastest")`).
 
     poc_mode: "frozen" keeps the POC Jacobians in `spec` fixed for the run
     (the reference's behavior, `simulation_blaster.py:37-39`); "online"
@@ -87,10 +87,8 @@ def make_tracking_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=jnp.float32,
     solver = ocp.solver
     N = ocp.N
     pc = poc_cfg or cfg.PocSolverConfig()
-    from mpc_blaster_tpu.sqp.rti import fused_dyn_statics, make_linearizer
+    from mpc_blaster_tpu.sqp.rti import make_linearizer
     lin = make_linearizer(ocp, params)
-    dyn = (fused_dyn_statics(ocp, 1)
-           if solver.qp_backend == "pallas_fused" else None)
 
     if poc_mode in ("online", "online_stagewise", "stagewise_anchored"):
         from mpc_blaster_tpu.dynamics.blaster import pack_stage_params
@@ -197,7 +195,7 @@ def make_tracking_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=jnp.float32,
                 spec_i, window, state = window_spec(i, x, state)
                 u0, state_new, warm_new, diag = rti_step_warm(
                     spec_i, state, warm, x, params, F, solver,
-                    linearizer=lin, dyn_statics=dyn)
+                    linearizer=lin)
                 x_next = plant_step(x, u0, plant_params)
                 out = (x_next, u0, window[0], diag.qp_kkt_stat,
                        diag.qp_kkt_eq)
@@ -210,8 +208,7 @@ def make_tracking_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=jnp.float32,
                 state, x = carry
                 spec_i, window, state = window_spec(i, x, state)
                 u0, state_new, diag = rti_step(spec_i, state, x, params, F,
-                                               solver, linearizer=lin,
-                                               dyn_statics=dyn)
+                                               solver, linearizer=lin)
                 x_next = plant_step(x, u0, plant_params)
                 out = (x_next, u0, window[0], diag.qp_kkt_stat,
                        diag.qp_kkt_eq)
@@ -341,7 +338,7 @@ def select_poc_mode(amp_x: float = 0.7, amp_y: float = 0.3,
     jet Jacobians scale ~z and ~gimbal deflection, both driven by these
     two terms).
 
-    Measured calibration (bench.py blast rows, v5e, true-POC error):
+    Measured calibration (f32 closed loops, true-POC error):
       - gentle default scan (rate ~= 0.54 m/s): frozen/anchored 0.0050 m
         BEATS stagewise 0.0081 m — per-stage re-linearization only adds
         jet-solve noise when the pose barely leaves the anchor.

@@ -5,8 +5,8 @@ The reference delegates this to acados' `nlp_solver_type='SQP_RTI'`
 the Gauss-Newton QP, solve with HPIPM, take a full step
 (`nlp_solver_step_length=1.0`, JSON). Here the whole tick is ONE jitted
 function — linearization (vmapped jacfwd over nodes), QP (Riccati IPM), and
-update fuse into a single XLA executable with no host round-trips, which is
-what makes >=kHz solve rates possible on TPU (SURVEY.md §7).
+update fuse into a single XLA executable with no host round-trips
+(SURVEY.md §7).
 
 Multi-iteration SQP (the reference's `SQP` mode with up to
 `nlp_solver_max_iter=100`) is `sqp_solve`: a lax.scan of RTI iterations at a
@@ -15,7 +15,6 @@ fixed initial state.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import NamedTuple, Tuple
 
 import jax
@@ -25,7 +24,7 @@ from mpc_blaster_tpu import config as cfg
 from mpc_blaster_tpu.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu.ocp.spec import OCPSpec
-from mpc_blaster_tpu.qp.data import QPData
+from mpc_blaster_tpu.qp.data import QPData, full_precision
 from mpc_blaster_tpu.qp.ipm import box_qp_solve
 
 
@@ -92,7 +91,12 @@ def init_rti_state(ocp: cfg.OCPConfig, x0, dtype=jnp.float32) -> RTIState:
 
 def _linearize_nodes(F, xbar, ubar, stage_params, params):
     """Vectorized (x_next, A, B) across all shooting nodes — one jacfwd over
-    the whole stacked horizon replaces acados' per-node sensitivity ERK."""
+    the whole stacked horizon replaces acados' per-node sensitivity ERK.
+
+    F's integrator runs at "highest" matmul precision
+    (`integrators.erk_integrate`): at the GPU default (TF32) the 3x3
+    rotation/POC products gave A/B 50x further from float64 than the
+    matmul-free fused linearizer (measured on an H100)."""
     def FAB(x, u, p):
         xn = F(x, u, p, params)
         A, B = jax.jacfwd(F, argnums=(0, 1))(x, u, p, params)
@@ -114,62 +118,6 @@ def make_linearizer(ocp: cfg.OCPConfig, params: BlasterParams,
     return None
 
 
-def fused_dyn_statics(ocp: cfg.OCPConfig, num_steps: int = 1,
-                      family: str = "blaster") -> tuple:
-    """STATIC dynamics constants for `qp_backend="pallas_fused"`: the
-    in-kernel linearization prologue (`ops/pallas_ipm.py`, `fuse_lin`)
-    bakes the model-family name, the physical constants, the shooting
-    interval and the ERK substep count into the compiled kernel (they are
-    per-vehicle constants — a recompile on airframe change is the right
-    trade). `family` selects the rows-form ODE from
-    `dynamics/fastlin.py::FAMILIES` ("blaster", "blaster_dist" for the
-    offset-free prediction model with disturbance rows in the stage
-    params, "quad13"). Returns
-    ((family, mass, g, arm_x, arm_y, yaw_c, Jx, Jy, Jz), dt, num_steps),
-    hashable for jit static args."""
-    m = ocp.model
-    return ((family, float(m.mass), float(m.gravity),
-             float(m.arm_length_x), float(m.arm_length_y),
-             float(m.yaw_coefficient),
-             float(m.inertia_diag[0]), float(m.inertia_diag[1]),
-             float(m.inertia_diag[2])),
-            float(ocp.dt), int(num_steps))
-
-
-def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0, params,
-                    solver: cfg.SolverConfig, dyn_statics, warm=None,
-                    soft=None):
-    """Single-kernel RTI QP solve: linearization, cost gradients, delta
-    bounds and dx0 are ALL assembled inside the IPM kernel — the host
-    passes the iterate + raw spec tensors. The acados analog is the
-    fully-fused C tick where one `solve()` call does linearize+condense+
-    solve (`blastermodel.py:277-289`)."""
-    from mpc_blaster_tpu.ops.pallas_ipm import (pallas_available,
-                                                pallas_fused_rti_solve)
-    if dyn_statics is None:
-        raise ValueError(
-            "qp_backend='pallas_fused' needs static dynamics constants: "
-            "build ticks via make_rti_step/closed_loop, or pass "
-            "dyn_statics=fused_dyn_statics(ocp, num_steps)")
-    model, dt, nsteps = dyn_statics
-    wb = None if warm is None else jax.tree.map(lambda a: a[None], warm)
-    dtw = spec.dt  # cost dt-scaling == shooting interval (build_qp)
-    Rh = qp_hessian_R(spec, solver)   # QP-only floor (gradient keeps R)
-    Rg = ((dtw * spec.R)[None]
-          if solver.qp_r_floor is not None else None)
-    sol = pallas_fused_rti_solve(
-        state.xbar[None], state.ubar[None], spec.stage_params[None],
-        x0[None], (dtw * spec.Q)[None], spec.Q_t[None],
-        (dtw * Rh)[None], spec.yref_x[None], spec.yref_u[None],
-        spec.yref_e[None], spec.lbx[None], spec.ubx[None],
-        spec.lbu[None], spec.ubu[None],
-        model=model, dt=dt, num_steps=nsteps,
-        iters=solver.ipm_iters, mu0=solver.ipm_mu0,
-        alpha_frac=solver.ipm_alpha_frac, reg=max(solver.ipm_reg, 1e-6),
-        interpret=not pallas_available(), warm=wb, soft=soft, R_grad=Rg)
-    return jax.tree.map(lambda a: a[0], sol)
-
-
 def qp_hessian_R(spec: OCPSpec, solver) -> jnp.ndarray:
     """The R used for the QP's Gauss-Newton HESSIAN only (r5).
 
@@ -189,6 +137,30 @@ def qp_hessian_R(spec: OCPSpec, solver) -> jnp.ndarray:
     return spec.R + jnp.diag(jnp.maximum(fl - d, 0.0))
 
 
+@full_precision
+def _assemble_qp(spec: OCPSpec, state: RTIState, x0: jnp.ndarray, x_pred,
+                 A, B, solver) -> QPData:
+    """Delta-form Gauss-Newton QP around the iterate, given the shooting
+    nodes' forward predictions and Jacobians."""
+    xbar, ubar = state.xbar, state.ubar
+    dtw = spec.dt
+    Qs = jnp.concatenate([
+        jnp.tile((dtw * spec.Q)[None], (spec.horizon, 1, 1)),
+        spec.Q_t[None]], axis=0)
+    q_stage = dtw * (xbar[:-1] - spec.yref_x) @ spec.Q.T
+    q_term = ((xbar[-1] - spec.yref_e) @ spec.Q_t.T)[None]
+    Rs = jnp.tile((dtw * qp_hessian_R(spec, solver))[None],
+                  (spec.horizon, 1, 1))
+    return QPData(
+        A=A, B=B, c=x_pred - xbar[1:],          # shooting defects
+        Q=Qs, q=jnp.concatenate([q_stage, q_term], axis=0),
+        R=Rs, r=dtw * (ubar - spec.yref_u) @ spec.R.T,
+        lbx=spec.lbx[None] - xbar, ubx=spec.ubx[None] - xbar,
+        lbu=spec.lbu[None] - ubar, ubu=spec.ubu[None] - ubar,
+        dx0=x0 - xbar[0],
+    )
+
+
 def build_qp(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
              F, params: BlasterParams, linearizer=None,
              solver=None) -> QPData:
@@ -198,31 +170,12 @@ def build_qp(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
     `(xbar, ubar, stage_params) -> (x_next, A, B)` callable (the fused
     component-form backend, `dynamics/fastlin.py`). `solver` feeds the
     optional QP-only Hessian floor (`qp_hessian_R`)."""
-    xbar, ubar = state.xbar, state.ubar
     if linearizer is not None:
-        x_pred, A, B = linearizer(xbar, ubar, spec.stage_params)
+        x_pred, A, B = linearizer(state.xbar, state.ubar, spec.stage_params)
     else:
-        x_pred, A, B = _linearize_nodes(F, xbar, ubar, spec.stage_params,
-                                        params)
-    c = x_pred - xbar[1:]                       # shooting defects
-
-    dtw = spec.dt
-    Qs = jnp.concatenate([
-        jnp.tile((dtw * spec.Q)[None], (spec.horizon, 1, 1)),
-        spec.Q_t[None]], axis=0)
-    q_stage = dtw * (xbar[:-1] - spec.yref_x) @ spec.Q.T
-    q_term = ((xbar[-1] - spec.yref_e) @ spec.Q_t.T)[None]
-    qs = jnp.concatenate([q_stage, q_term], axis=0)
-    Rs = jnp.tile((dtw * qp_hessian_R(spec, solver))[None],
-                  (spec.horizon, 1, 1))
-    rs = dtw * (ubar - spec.yref_u) @ spec.R.T
-
-    return QPData(
-        A=A, B=B, c=c, Q=Qs, q=qs, R=Rs, r=rs,
-        lbx=spec.lbx[None] - xbar, ubx=spec.ubx[None] - xbar,
-        lbu=spec.lbu[None] - ubar, ubu=spec.ubu[None] - ubar,
-        dx0=x0 - xbar[0],
-    )
+        x_pred, A, B = _linearize_nodes(F, state.xbar, state.ubar,
+                                        spec.stage_params, params)
+    return _assemble_qp(spec, state, x0, x_pred, A, B, solver)
 
 
 def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
@@ -231,12 +184,9 @@ def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
     "riccati" is the full-horizon Riccati IPM (the reference's effective
     cond_N=N HPIPM configuration); "condensed" applies real partial
     condensing with block size `solver.cond_M` before solving
-    (`qp/condense.py`); "pallas" runs the fused whole-IPM TPU mega-kernel
-    (`ops/pallas_ipm.py`) on a batch of one — the latency path for the
-    >=1 kHz single-trajectory loop (interpret-mode fallback off-TPU, for
-    tests only). `warm` (qp.ipm.IpmWarmStart) is honored by the riccati
-    and pallas backends; condensed solves are cold (the condensed QP's
-    slack geometry doesn't transfer across ticks)."""
+    (`qp/condense.py`). `warm` (qp.ipm.IpmWarmStart) is honored by the
+    riccati backend; condensed solves are cold (the condensed QP's slack
+    geometry doesn't transfer across ticks)."""
     if solver.qp_backend == "condensed":
         if warm is not None:
             raise ValueError("qp_backend='condensed' does not support "
@@ -247,20 +197,6 @@ def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
                                   mu0=solver.ipm_mu0,
                                   alpha_frac=solver.ipm_alpha_frac,
                                   reg=solver.ipm_reg)
-    if solver.qp_backend == "pallas":
-        from mpc_blaster_tpu.ops.pallas_ipm import (pallas_available,
-                                                    pallas_box_qp_solve)
-        qb = jax.tree.map(lambda a: a[None], qp)
-        wb = None if warm is None else jax.tree.map(lambda a: a[None], warm)
-        sol = pallas_box_qp_solve(qb, iters=solver.ipm_iters,
-                                  mu0=solver.ipm_mu0,
-                                  alpha_frac=solver.ipm_alpha_frac,
-                                  reg=max(solver.ipm_reg, 1e-6),
-                                  interpret=not pallas_available(),
-                                  stream_p=solver.pallas_stream_p,
-                                  stream_big=solver.pallas_stream_big,
-                                  warm=wb)
-        return jax.tree.map(lambda a: a[0], sol)
     return box_qp_solve(qp, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
                         alpha_frac=solver.ipm_alpha_frac, reg=solver.ipm_reg,
                         riccati=solver.riccati, warm=warm)
@@ -268,19 +204,12 @@ def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
 
 def rti_step(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
              params: BlasterParams, F, solver: cfg.SolverConfig,
-             linearizer=None, dyn_statics=None
+             linearizer=None
              ) -> Tuple[jnp.ndarray, RTIState, RTIDiagnostics]:
-    """One real-time iteration. Returns (u0, updated iterate, diagnostics).
-
-    With `solver.qp_backend == "pallas_fused"` the linearization runs
-    INSIDE the IPM kernel (single-kernel tick; `linearizer` is unused —
-    pass `dyn_statics=fused_dyn_statics(ocp, num_steps)`)."""
-    if solver.qp_backend == "pallas_fused":
-        sol = _fused_qp_solve(spec, state, x0, params, solver, dyn_statics)
-    else:
-        qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
-                      solver=solver)
-        sol = solve_qp_backend(qp, solver)
+    """One real-time iteration. Returns (u0, updated iterate, diagnostics)."""
+    qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
+                  solver=solver)
+    sol = solve_qp_backend(qp, solver)
     new_state = RTIState(xbar=state.xbar + sol.dx, ubar=state.ubar + sol.du)
     diag = RTIDiagnostics(
         qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
@@ -329,26 +258,8 @@ def build_qp_jacreuse(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
         return x_pred, cache.A, cache.B
 
     x_pred, A, B = jax.lax.cond(refresh, full, reuse, cache)
-    c = x_pred - xbar[1:]
-
-    dtw = spec.dt
-    Qs = jnp.concatenate([
-        jnp.tile((dtw * spec.Q)[None], (spec.horizon, 1, 1)),
-        spec.Q_t[None]], axis=0)
-    q_stage = dtw * (xbar[:-1] - spec.yref_x) @ spec.Q.T
-    q_term = ((xbar[-1] - spec.yref_e) @ spec.Q_t.T)[None]
-    qs = jnp.concatenate([q_stage, q_term], axis=0)
-    Rs = jnp.tile((dtw * qp_hessian_R(spec, solver))[None],
-                  (spec.horizon, 1, 1))
-    rs = dtw * (ubar - spec.yref_u) @ spec.R.T
-
-    qp = QPData(
-        A=A, B=B, c=c, Q=Qs, q=qs, R=Rs, r=rs,
-        lbx=spec.lbx[None] - xbar, ubx=spec.ubx[None] - xbar,
-        lbu=spec.lbu[None] - ubar, ubu=spec.ubu[None] - ubar,
-        dx0=x0 - xbar[0],
-    )
-    return qp, JacCache(A=A, B=B)
+    return (_assemble_qp(spec, state, x0, x_pred, A, B, solver),
+            JacCache(A=A, B=B))
 
 
 def rti_step_jacreuse(spec: OCPSpec, state: RTIState, cache: JacCache,
@@ -370,14 +281,14 @@ def rti_step_jacreuse(spec: OCPSpec, state: RTIState, cache: JacCache,
 
 def rti_step_warm(spec: OCPSpec, state: RTIState, warm, x0: jnp.ndarray,
                   params: BlasterParams, F, solver: cfg.SolverConfig,
-                  linearizer=None, dyn_statics=None):
+                  linearizer=None):
     """RTI tick with slack/dual warm starting (HPIPM warm_start=1 analog).
 
     Returns (u0, new_state, warm_out, diag). Pass `warm_out` into the next
     tick; seed the first tick with `IpmWarmStart.zeros(...)` (valid=0 ->
     cold).
 
-    CAVEAT (measured on v5e, round 2): on aggressive transients the
+    CAVEAT (measured): on aggressive transients the
     previous tick's near-active duals mislead low-iteration RAW warm
     solves — altitude steps overshoot and figure-8 tracking degrades
     ~10x vs per-tick cold starts. This mirrors why the reference runs
@@ -389,13 +300,9 @@ def rti_step_warm(spec: OCPSpec, state: RTIState, warm, x0: jnp.ndarray,
     """
     from mpc_blaster_tpu.qp.ipm import warm_start_from, warm_start_recenter
 
-    if solver.qp_backend == "pallas_fused":
-        sol = _fused_qp_solve(spec, state, x0, params, solver, dyn_statics,
-                              warm=warm)
-    else:
-        qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
-                      solver=solver)
-        sol = solve_qp_backend(qp, solver, warm=warm)
+    qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
+                  solver=solver)
+    sol = solve_qp_backend(qp, solver, warm=warm)
     new_state = RTIState(xbar=state.xbar + sol.dx, ubar=state.ubar + sol.du)
     diag = RTIDiagnostics(
         qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
@@ -415,7 +322,7 @@ def rti_step_warm(spec: OCPSpec, state: RTIState, warm, x0: jnp.ndarray,
 
 def rti_step_soft(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
                   params: BlasterParams, F, solver: cfg.SolverConfig,
-                  soft, linearizer=None, dyn_statics=None):
+                  soft, linearizer=None):
     """RTI tick with soft (slacked) state bounds — the acados ns>0 analog
     (`qp/soft.py`). Use when disturbances can push the state outside the
     hard box (the sim preset's position box is ±1.5 m,
@@ -424,67 +331,17 @@ def rti_step_soft(spec: OCPSpec, state: RTIState, x0: jnp.ndarray,
 
     `soft` is a `qp.soft.SoftBounds` in *delta* units — the box is affine
     in the iterate, so penalties (which are shift-invariant) transfer
-    directly. Returns (u0, new_state, diag, violations).
-
-    With `solver.qp_backend == "pallas"` the soft QP runs INSIDE the
-    IPM mega-kernel (stage-wise elimination, ops/pallas_ipm.py); with
-    "pallas_fused" (r4) the linearization ALSO fuses in — one kernel for
-    the whole soft tick (pass `dyn_statics=fused_dyn_statics(ocp)`).
-    Violations are recovered from the returned primal. Other backends
-    use the XLA soft solver (`qp/soft.py`).
+    directly. Returns (u0, new_state, diag, violations). Every backend
+    uses the XLA soft solver (`qp/soft.py`).
     """
-    from mpc_blaster_tpu.qp.soft import (SoftQPSolution, soft_box_qp_solve,
-                                         violations_from_primal)
-
-    if solver.qp_backend == "pallas_fused":
-        sol = _fused_qp_solve(spec, state, x0, params, solver, dyn_statics,
-                              soft=soft)
-        new_state = RTIState(xbar=state.xbar + sol.dx,
-                             ubar=state.ubar + sol.du)
-        # violations from the ABSOLUTE updated iterate (no QPData exists
-        # on this path): t = max(-(sgn)(v - b), 0) in delta units equals
-        # the same expression in absolute units
-        def viol(v, b, sgn, pen):
-            sm = pen.soft & jnp.isfinite(b)
-            return jnp.where(sm, jnp.maximum(-sgn * (v - b), 0.0), 0.0)
-        res = SoftQPSolution(
-            sol=sol,
-            t_lx=viol(new_state.xbar[1:], spec.lbx[None], 1.0, soft.lx),
-            t_ux=viol(new_state.xbar[1:], spec.ubx[None], -1.0, soft.ux),
-            t_lu=viol(new_state.ubar, spec.lbu[None], 1.0, soft.lu),
-            t_uu=viol(new_state.ubar, spec.ubu[None], -1.0, soft.uu))
-        diag = RTIDiagnostics(
-            qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
-            step_norm_x=jnp.max(jnp.abs(sol.dx)),
-            step_norm_u=jnp.max(jnp.abs(sol.du)),
-            bound_viol=_bound_violation(spec, new_state),
-        )
-        return new_state.ubar[0], new_state, diag, res
+    from mpc_blaster_tpu.qp.soft import soft_box_qp_solve
 
     qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
                   solver=solver)
-    if solver.qp_backend == "pallas":
-        from mpc_blaster_tpu.ops.pallas_ipm import (pallas_available,
-                                                    pallas_box_qp_solve)
-        qb = jax.tree.map(lambda a: a[None], qp)
-        solb = pallas_box_qp_solve(qb, iters=solver.ipm_iters,
-                                   mu0=solver.ipm_mu0,
-                                   alpha_frac=solver.ipm_alpha_frac,
-                                   reg=max(solver.ipm_reg, 1e-6),
-                                   interpret=not pallas_available(),
-                                   stream_p=solver.pallas_stream_p,
-                                   stream_big=solver.pallas_stream_big,
-                                   soft=soft)
-        sol = jax.tree.map(lambda a: a[0], solb)
-        t_lx, t_ux, t_lu, t_uu = violations_from_primal(
-            qp, soft, sol.dx, sol.du)
-        res = SoftQPSolution(sol=sol, t_lx=t_lx, t_ux=t_ux,
-                             t_lu=t_lu, t_uu=t_uu)
-    else:
-        res = soft_box_qp_solve(qp, soft, iters=solver.ipm_iters,
-                                mu0=solver.ipm_mu0,
-                                alpha_frac=solver.ipm_alpha_frac,
-                                reg=solver.ipm_reg)
+    res = soft_box_qp_solve(qp, soft, iters=solver.ipm_iters,
+                            mu0=solver.ipm_mu0,
+                            alpha_frac=solver.ipm_alpha_frac,
+                            reg=solver.ipm_reg)
     sol = res.sol
     new_state = RTIState(xbar=state.xbar + sol.dx, ubar=state.ubar + sol.du)
     diag = RTIDiagnostics(
@@ -516,7 +373,7 @@ def rti_step_warm_guarded(spec: OCPSpec, state: RTIState, warm,
                           wd: WatchdogState, x0: jnp.ndarray,
                           params: BlasterParams, F,
                           solver: cfg.SolverConfig, linearizer=None,
-                          dyn_statics=None, jump: float = 30.0,
+                          jump: float = 30.0,
                           floor: float = 0.5, ema_rate: float = 0.9,
                           viol_cap: float = 0.25, hold_ticks: int = 10):
     """`rti_step_warm` with an ONLINE divergence watchdog (r4; makes the
@@ -566,7 +423,7 @@ def rti_step_warm_guarded(spec: OCPSpec, state: RTIState, warm,
                         warm.valid))
     u0, st1, warm1, diag1 = rti_step_warm(
         spec, state, warm_in, x0, params, F, solver,
-        linearizer=linearizer, dyn_statics=dyn_statics)
+        linearizer=linearizer)
     thresh = jnp.maximum(jump * wd.ema_eq, floor)
     bad = (~jnp.all(jnp.isfinite(u0))
            | ~jnp.isfinite(diag1.qp_kkt_eq)
@@ -582,8 +439,7 @@ def rti_step_warm_guarded(spec: OCPSpec, state: RTIState, warm,
                       spec.lbu[None], spec.ubu[None])
         return rti_step_warm(spec, RTIState(xbar=xb, ubar=ub),
                              warm_cold, x0, params, F, solver,
-                             linearizer=linearizer,
-                             dyn_statics=dyn_statics)
+                             linearizer=linearizer)
 
     def keep(_):
         return u0, st1, warm1, diag1
@@ -676,12 +532,9 @@ def make_rti_step(ocp: cfg.OCPConfig, dtype=jnp.float32, num_steps: int = 1,
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=num_steps)
     solver = ocp.solver
     lin = make_linearizer(ocp, params, num_steps=num_steps)
-    dyn = (fused_dyn_statics(ocp, num_steps)
-           if solver.qp_backend == "pallas_fused" else None)
 
     def step(spec: OCPSpec, state: RTIState, x0: jnp.ndarray):
-        return rti_step(spec, state, x0, params, F, solver, linearizer=lin,
-                        dyn_statics=dyn)
+        return rti_step(spec, state, x0, params, F, solver, linearizer=lin)
 
     return jax.jit(step) if jit else step
 

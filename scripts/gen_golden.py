@@ -4,7 +4,7 @@ The reference repo has no recorded outputs to compare against (SURVEY.md
 §6: per-tick times printed and discarded, no benchmark artifacts), so the
 golden baseline is this framework's own f64 CPU solution, pinned once and
 committed; tests then (a) detect behavioral regressions exactly and (b)
-check f32/TPU runs stay within control tolerance of the pinned f64 truth.
+check f32 device runs stay within control tolerance of the pinned f64 truth.
 
 Usage: python scripts/gen_golden.py
 """

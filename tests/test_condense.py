@@ -116,7 +116,7 @@ def test_condensed_matches_full_ipm_active_bounds(M):
     # rank-nu control map, so weakly-active interior bounds are degenerate
     # and the IPM floors ~2 decades above the full-horizon solver (kkt_stat
     # ~1e-6 in f64 — at/below both the acados NLP tolerance and the f32
-    # floor that governs the TPU path). Same trade HPIPM accepts.
+    # floor that governs the f32 device path). Same trade HPIPM accepts.
     np.testing.assert_allclose(np.asarray(sol.du), np.asarray(ref.du),
                                atol=1e-3)
     assert float(qp_objective(data, sol.dx, sol.du)) == pytest.approx(
@@ -227,7 +227,7 @@ def test_condensed_backend_closed_loop():
     np.testing.assert_allclose(np.asarray(res.xs[:, :12]),
                                np.asarray(ref.xs[:, :12]), atol=1.5e-2)
 
-    # f32 (the TPU compute dtype): the equilibrated small-Cholesky +
+    # f32 (the device compute dtype): the equilibrated small-Cholesky +
     # fail-safe inverse (qp/smallalg.py) keep the condensed backend stable
     # in single precision — the whole transient stays within 2e-2 of the
     # f64 trajectory (VERDICT r1 acceptance bar; full figure-8 parity is

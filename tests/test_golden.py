@@ -35,7 +35,7 @@ def test_flight_golden_f64_exact():
 
 
 def test_figure8_golden_f32_tolerance():
-    """f32 (TPU dtype) stays within control-grade tolerance of f64 truth."""
+    """f32 (device dtype) stays within control-grade tolerance of f64 truth."""
     g = _load("figure8_120.npz")
     res = run_figure8(n_steps=120, dtype=jnp.float32)
     xs32 = np.asarray(res.xs)

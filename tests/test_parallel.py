@@ -21,7 +21,7 @@ B = 16
 def _setup():
     # N=24: batched-vs-single / sharded-vs-batched equivalence is
     # horizon-independent; the N=60 flagship is covered by test_sqp_sim
-    # and the multichip dryrun.
+    # and chip_smoke.py.
     import dataclasses
     preset = cfg.simulation_preset()
     ocp = dataclasses.replace(preset.ocp, N=24, Tf=24 / 30.0)

@@ -212,46 +212,3 @@ def test_rti_step_soft_out_of_box_state():
     assert float(res.t_ux[0, 0]) > 0.5
     # late in the horizon the plan returns inside the box
     assert float(jnp.max(res.t_ux[-10:, 0])) < 0.2
-
-
-@pytest.mark.slow
-def test_rti_step_soft_pallas_backend_matches_xla():
-    """rti_step_soft with qp_backend='pallas' (the in-kernel stage-wise
-    elimination, interpret mode here) agrees with the XLA soft solver on
-    the out-of-box scenario: same penalized objective and the same stage-1
-    upper-x violation."""
-    import dataclasses
-    from mpc_blaster_tpu import config as cfg
-    from mpc_blaster_tpu.dynamics.blaster import BlasterParams, blaster_ode
-    from mpc_blaster_tpu.dynamics.integrators import discrete_dynamics
-    from mpc_blaster_tpu.ocp.spec import build_spec
-    from mpc_blaster_tpu.sqp.rti import init_rti_state, rti_step_soft
-
-    DTYPE = jnp.float32  # the kernel is f32
-    preset = cfg.simulation_preset()
-    ocp = dataclasses.replace(preset.ocp, N=8, Tf=8 / 30.0)
-    x0 = np.zeros(cfg.NX)
-    x0[0] = 2.4
-    x0[2] = 2.0
-    yref = np.zeros(cfg.NY)
-    yref[2] = 2.0
-    spec = build_spec(ocp, yref=yref, dtype=DTYPE)
-    x0 = jnp.asarray(x0, DTYPE)
-    params = BlasterParams.from_config(ocp.model, DTYPE)
-    F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
-    soft = SoftBounds.state_bounds(ocp.N, cfg.NX, cfg.NU, Zl=1e3, zl=1e2,
-                                   dtype=DTYPE)
-    outs = {}
-    for backend in ("riccati", "pallas"):
-        sv = dataclasses.replace(ocp.solver, qp_backend=backend,
-                                 ipm_iters=6)
-        st = init_rti_state(ocp, x0, DTYPE)
-        u0, st, diag, res = jax.jit(
-            lambda sp, st, x, so, sv=sv: rti_step_soft(
-                sp, st, x, params, F, sv, so))(spec, st, x0, soft)
-        assert np.isfinite(np.asarray(u0)).all()
-        outs[backend] = (np.asarray(u0), float(res.t_ux[0, 0]))
-    # stage-1 violations agree; thrust commands close (f32 QP noise)
-    assert abs(outs["pallas"][1] - outs["riccati"][1]) < 0.05
-    np.testing.assert_allclose(outs["pallas"][0][:4],
-                               outs["riccati"][0][:4], rtol=0.05)

@@ -1,6 +1,5 @@
 """13-state quaternion quadrotor model on the generic solver stack."""
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from mpc_blaster_tpu.dynamics.blaster import BlasterParams
@@ -58,34 +57,3 @@ def test_quad13_rti_converges_to_hover():
     assert abs(x[2] - 2.0) < 0.05, x[0:3]
     assert abs(np.linalg.norm(x[3:7]) - 1.0) < 1e-3
     np.testing.assert_allclose(x[7:10], 0.0, atol=0.05)
-
-
-def test_quad13_pallas_backend_matches_xla():
-    """The dim-generic Pallas IPM kernel (interpret mode) serves the
-    13-state quaternion family: thrust commands match the XLA Riccati
-    backend on a climb tick."""
-    import dataclasses
-    import jax
-    import numpy as np
-    import jax.numpy as jnp
-    from mpc_blaster_tpu import config as cfg
-    from mpc_blaster_tpu.models.quad13 import (
-        Quad13Config, build_quad13_spec, hover_state,
-        init_quad13_rti_state, make_quad13_rti_step)
-
-    qc = Quad13Config(N=8)
-    spec = build_quad13_spec(qc, target_pos=(0.0, 0.0, 1.4),
-                             dtype=jnp.float32)
-    x0 = hover_state(1.0, jnp.float32)
-    st = init_quad13_rti_state(qc, x0, jnp.float32)
-    outs = {}
-    for backend in ("riccati", "pallas"):
-        sv = dataclasses.replace(cfg.SolverConfig(), qp_backend=backend,
-                                 ipm_iters=8)
-        step = make_quad13_rti_step(qc, dtype=jnp.float32, solver=sv)
-        u0, st2, diag = step(spec, st, x0)
-        assert np.isfinite(np.asarray(u0)).all()
-        assert float(diag.qp_kkt_eq) < 1e-2
-        outs[backend] = np.asarray(u0)
-    np.testing.assert_allclose(outs["pallas"], outs["riccati"],
-                               rtol=0.02, atol=0.2)

@@ -85,7 +85,7 @@ def test_offset_free_no_hunt_both_presets_n30():
     """r5 pin of the corrected r4 finding: the offset-free hunt was a
     SHORT-HORIZON artifact of the N=20-truncated sim config (a
     multi-factor closed-loop stability boundary — neither R_swivel nor a
-    QP-only Hessian floor fixes it, scripts/probe_r5_*.py), NOT a gimbal
+    QP-only Hessian floor fixes it), NOT a gimbal
     flat-subspace property. Within the stable envelope (N >= 24 at
     dt = 1/30; the preset's native horizon is 60) wind compensation
     settles to centimeters on BOTH presets, R_swivel = 1e-5 included."""

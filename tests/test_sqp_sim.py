@@ -97,7 +97,7 @@ def test_closed_loop_flight_preset():
 
 @pytest.mark.slow
 def test_closed_loop_f32_close_to_f64():
-    """f32 (TPU dtype) controls stay within 1e-3-grade agreement of f64.
+    """f32 (device dtype) controls stay within 1e-3-grade agreement of f64.
 
     Uses a well-conditioned cost variant: with the reference's R_swivel=1e-5
     (`simulation_blaster.py:27`) the gimbal subspace is flat to ~1e-6 of the
@@ -206,7 +206,7 @@ def test_closed_loop_warm_start_quality():
 @pytest.mark.slow
 def test_jacobian_reuse_closed_loop():
     """Jacobian-reuse ticks (refresh every 4th) track like full ticks —
-    the reference's sim_method_jac_reuse made TPU-native."""
+    the reference's sim_method_jac_reuse, on device."""
     import functools
     from mpc_blaster_tpu.sqp.rti import (JacCache, rti_step,
                                          rti_step_jacreuse)

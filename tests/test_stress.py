@@ -11,7 +11,7 @@ failure surfaced through diagnostics instead of exceptions.
 Stress batch: states at box corners, 2x outside the position box, at
 velocity/omega bounds, gimbal pinned at its asymmetric limits, and random
 draws well beyond the operating envelope. Everything runs vmapped in ONE
-compiled call at f32 (the TPU dtype — the stressful one).
+compiled call at f32 (the device dtype — the stressful one).
 """
 import dataclasses
 

@@ -150,8 +150,7 @@ def test_poc_mode_selector_picks_measured_winners():
 
 def test_carry_frac_selector_and_refs():
     """r5: the co-moving-reference decision rule + feedforward geometry.
-    Measured calibration (scripts/probe_r5_blast_carry.py, aggressive
-    bench profile): carry 0.0 -> 0.140 m, 0.3 -> 0.039, 0.6 -> 0.023
+    Measured calibration (aggressive bench profile): carry 0.0 -> 0.140 m, 0.3 -> 0.039, 0.6 -> 0.023
     (best), 1.0 -> 0.084 (over-driven); gentle profile: carry 0.6 HURTS
     (0.005 -> 0.016) so it stays off below the 0.8 m/s staleness rate."""
     from mpc_blaster_tpu.sim.tasks import (blast_scan_refs,

@@ -2,7 +2,7 @@
 `sqp/rti.py::rti_step_warm_guarded`): the machinery that makes
 `deployed_solver("fastest")` safe by construction. The r3 failure class
 being guarded — raw warm chains blowing up ~200 m on altitude steps —
-reproduces only on the hardware pallas path, so these tests drive the
+is not reliably reproducible at test sizes, so these tests drive the
 watchdog deterministically: poisoned warm states must trip and yield
 exactly the cold-solve answer; healthy chains must never trip."""
 import dataclasses
